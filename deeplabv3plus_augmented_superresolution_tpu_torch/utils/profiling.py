@@ -1,0 +1,56 @@
+"""Per-stage wall times (port of the JAX package's ``utils/profiling.StageTimer``).
+
+With ``sync_device`` set, each stage is bracketed by
+``torch.cuda.synchronize(device)``, so its wall time covers the device work
+it enqueued (serializing: for sequential profiling). Without it, stages
+record pure wall time under a lock, safe inside overlapped pipelines.
+"""
+
+import contextlib
+import threading
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+import torch
+
+
+class StageTimer:
+    def __init__(self, sync_device: Optional[torch.device] = None):
+        self.sync_device = sync_device
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self.maxes: Dict[str, float] = defaultdict(float)
+        self._lock = threading.Lock()
+
+    def _sync(self):
+        if self.sync_device is not None and self.sync_device.type == "cuda":
+            torch.cuda.synchronize(self.sync_device)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        self._sync()
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            elapsed = time.perf_counter() - start
+            with self._lock:
+                self.totals[name] += elapsed
+                self.counts[name] += 1
+                self.maxes[name] = max(self.maxes[name], elapsed)
+
+    def as_dict(self) -> Dict[str, Dict[str, float]]:
+        """max_s separates a slow first call: steady-state ms/call =
+        (total_s - max_s) / (calls - 1) when calls > 1."""
+        with self._lock:
+            out = {}
+            for name, total in self.totals.items():
+                count, mx = self.counts[name], self.maxes[name]
+                d = {"total_s": total, "calls": count,
+                     "ms_per_call": total / max(count, 1) * 1000, "max_s": mx}
+                if count > 1:
+                    d["steady_ms_per_call"] = (total - mx) / (count - 1) * 1000
+                out[name] = d
+            return out
