@@ -3,14 +3,16 @@
 Port of the JAX package's ``ops/fused_operator.py``: the decimations are
 folded into the shear chain, so the later passes work on fewer rows.
 
-  pass A: x-shear at full resolution.
-  pass B: y-shear (as a row shear of the transposed image), then the
+  pass A: x-shear at full resolution; every copy reads the one target
+          plane (a stride-0 batch), so no expanded batch is written.
+  pass B: y-shear (the column kernel, no transposes), then the
           y-decimation: 128 rows per copy at 512 -> 128.
   pass C: x-shear at the decimated y coordinates, then the x-decimation.
 
-Each shift is the shear kernel (``shear_warp.shear_rows_dispatch``); each
-decimation is a plain float32 matrix product with the TF-bilinear matrix of
-``ops/resize``. The adjoint comes from autograd: the shear Function's
+Each shift is a shear kernel (``shear_warp.shear_rows_dispatch`` and
+``shear_cols_dispatch``); each decimation is a plain float32 matrix product
+with the TF-bilinear matrix of ``ops/resize``, from the left over H and from
+the right over W. The adjoint comes from autograd: the shear Function's
 backward (the shift by -s) and the matmul's transpose.
 """
 
@@ -19,18 +21,11 @@ from typing import Tuple
 import torch
 
 from .resize import resize_matrix
-from .shear_warp import S_MAX, S_MIN, _shear_pass_x, shear_rows_dispatch
+from .shear_warp import pass_shifts, shear_cols_dispatch, shear_rows_dispatch
 
-
-def _decimating_shear(images: torch.Tensor, s: torch.Tensor,
-                      out_size: int) -> torch.Tensor:
-    """Per-row fractional shift + TF-bilinear decimation along the last axis.
-
-    images: (N, H, W) contiguous; s: (N, H); returns (N, H, out_size)."""
-    w = images.shape[-1]
-    shifted = shear_rows_dispatch(images, s.clamp(S_MIN, S_MAX).contiguous())
-    dmat = resize_matrix(out_size, w, "bilinear", device=images.device)
-    return torch.matmul(shifted, dmat.t())
+# Kernel launches of one application of the operator (passes A, B, C); its
+# adjoint through autograd launches the same again.
+OPERATOR_LAUNCHES = {"shear_rows": 2, "shear_cols": 1}
 
 
 def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
@@ -45,7 +40,8 @@ def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
     reference and bounds nothing here.
     """
     del angle_max
-    img = target if target.dim() == 2 else target[0, :, :, 0]
+    # One plane; a no-op unless the caller's target is a strided view.
+    img = (target if target.dim() == 2 else target[0, :, :, 0]).contiguous()
     h, w = img.shape
     hl, wl = feature_size
     if hl > h or wl > w:
@@ -68,15 +64,13 @@ def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
     off_b = ty + b * cx               # pass B y offset (coef b on x - cx)
     off_c = a * cy                    # pass C x offset (coef a on y - cy)
 
-    # ---- pass A: x-shear at full resolution ----
-    batched = img[None, :, :, None].expand(n, h, w, 1)
-    i1 = _shear_pass_x(batched, a, off_a, cy)[..., 0]             # (N, H, W)
+    # ---- pass A: x-shear at full resolution, one plane read by all copies ----
+    i1 = shear_rows_dispatch(img[None].expand(n, h, w),
+                             pass_shifts(a, off_a, cy, h))          # (N, H, W)
 
-    # ---- pass B: y-shear + y-decimation, transposed to row-shift form ----
-    x_coords = torch.arange(w, dtype=torch.float32, device=device)
-    s_b = b[:, None] * (x_coords[None, :] - cx) + off_b[:, None]   # (N, W)
-    i1_t = i1.transpose(1, 2).contiguous()                         # (N, W, H)
-    i2 = _decimating_shear(i1_t, s_b, hl).transpose(1, 2)          # (N, hl, W)
+    # ---- pass B: y-shear, then the y-decimation from the left ----
+    i1 = shear_cols_dispatch(i1, pass_shifts(b, off_b, cx, w))
+    i2 = torch.matmul(resize_matrix(hl, h, "bilinear", device=device), i1)  # (N, hl, W)
 
     # ---- pass C: x-shear + x-decimation, the shift evaluated at the
     # decimated y sample positions (TF half-pixel mapping) ----
@@ -84,5 +78,6 @@ def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
     yl_coords = (torch.arange(hl, dtype=torch.float32, device=device) + 0.5) \
         * ratio_y - 0.5
     s_c = a[:, None] * (yl_coords[None, :] - cy) + off_c[:, None]  # (N, hl)
-    out = _decimating_shear(i2.contiguous(), s_c, wl)              # (N, hl, wl)
-    return out[..., None]
+    i3 = shear_rows_dispatch(i2, s_c)
+    out = torch.matmul(i3, resize_matrix(wl, w, "bilinear", device=device).t())
+    return out[..., None]                                          # (N, hl, wl, 1)

@@ -4,37 +4,49 @@ Port of the JAX package's ``ops/shear_warp.py``:
 
   R(theta) = Sx(-tan(theta/2)) . Sy(sin theta) . Sx(-tan(theta/2))   (Paeth)
 
-with the translation folded into the shear offsets. Each pass shifts every
-row (or, for the y pass, every column) by its own fractional amount with a
-2-tap lerp and zero fill: ``shear_rows``. The adjoint of that shift is the
-shift by -s, so the backward pass is the same operation.
+with the translation folded into the shear offsets. The x passes shift every
+row by its own fractional amount (``shear_rows``), the y pass every column
+(``shear_cols``), each with a 2-tap lerp and zero fill. The adjoint of such a
+shift is the shift by -s, so the backward pass is the same operation.
 
-On a CUDA tensor the shift runs the hand-written kernel
-(``ops/shear_kernel.py``); on a CPU tensor it runs ``shear_rows``, the plain
-PyTorch version below. The GPU gathers directly, so none of the TPU's static
-tap windows exist here: ``angle_max`` stays in the public signatures for
-parity with the reference and sizes nothing.
+On a CUDA tensor the shifts run the hand-written kernels
+(``ops/shear_kernel.py``); on a CPU tensor they run ``shear_rows`` and
+``shear_cols``, the plain PyTorch versions below. The warp folds the channels
+into planes once, (N, H, W, C) -> (N, C, H, W), keeps that layout through the
+three passes and permutes back once; a batch that is an ``expand`` of one
+image is handed to the first pass as it is (stride 0 over the copies), never
+copied. The GPU gathers directly, so none of the TPU's static tap windows
+exist here: ``angle_max`` stays in the public signatures for parity with the
+reference and sizes nothing.
 """
 
 import math
 
 import torch
 
-from .shear_kernel import check_args, shear_rows_cuda
+from .shear_kernel import check_args, shear_cols_cuda, shear_rows_cuda
 
 # |shift| clip, as the reference's XLA path (shear_warp.py: s clipped to
 # [-_PAD + 1, _PAD - 2]).
 S_MIN, S_MAX = -255.0, 254.0
 
+# Kernel launches of one warp: two x passes and one y pass, whatever the
+# number of channels (they ride along as planes).
+WARP_LAUNCHES = {"shear_rows": 2, "shear_cols": 1}
+
 
 def shear_rows(images: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Plain version of the kernel: out[n, y, x] = (1 - t) in[n, y, x + f] +
-    t in[n, y, x + f + 1], f = floor(s), t = s - f, s clipped to [-255, 254],
-    zero fill, the blend in float32, the output in the input dtype.
+    """Plain version of the row kernel: out[n, y, x] = (1 - t) in[n, y, x + f]
+    + t in[n, y, x + f + 1], f = floor(s), t = s - f, s clipped to
+    [-255, 254], zero fill, the blend in float32, the output in the input
+    dtype.
 
-    images: (N, H, W) float32/bfloat16; s: (N, H) float32."""
-    n, h, w = images.shape
+    images: (N, H, W) or (N, C, H, W) float32/bfloat16; s: (N, H) float32,
+    shared by the C planes of a copy."""
+    w = images.shape[-1]
     s = s.clamp(S_MIN, S_MAX)
+    if images.dim() == 4:
+        s = s[:, None]
     f = torch.floor(s)
     t = (s - f)[..., None]
     idx = torch.arange(w, device=images.device) + f.to(torch.int64)[..., None]
@@ -42,70 +54,93 @@ def shear_rows(images: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
     def tap(i):
         valid = (i >= 0) & (i < w)
-        return torch.gather(src, 2, i.clamp(0, w - 1)) * valid
+        return torch.gather(src, -1, i.clamp(0, w - 1).expand(src.shape)) * valid
 
     return ((1.0 - t) * tap(idx) + t * tap(idx + 1)).to(images.dtype)
 
 
-def _shear_rows_on_device(images: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def shear_cols(images: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Plain version of the column kernel: out[n, y, x] = (1 - t) in[n, y + f, x]
+    + t in[n, y + f + 1, x] with f, t from s[n, x]: the row shear of the
+    transposed planes. images: (N, H, W) or (N, C, H, W); s: (N, W)."""
+    return shear_rows(images.transpose(-1, -2), s).transpose(-1, -2).contiguous()
+
+
+_PLAIN = {"rows": shear_rows, "cols": shear_cols}
+_KERNEL = {"rows": shear_rows_cuda, "cols": shear_cols_cuda}
+
+
+def _shear_on_device(axis: str, images: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if images.device.type == "cuda":
-        return shear_rows_cuda(images, s)  # checks its arguments itself
+        return _KERNEL[axis](images, s)  # checks its arguments itself
     if images.device.type == "cpu":
-        check_args(images, s)
-        return shear_rows(images, s)
+        check_args(images, s, axis)
+        return _PLAIN[axis](images, s)
     raise ValueError(f"no shear implementation for device {images.device}")
 
 
-class ShearRows(torch.autograd.Function):
+def _planes_contiguous(t: torch.Tensor) -> bool:
+    h, w = t.shape[-2:]
+    return (w <= 1 or t.stride(-1) == 1) and (h <= 1 or t.stride(-2) == w)
+
+
+class _Shear(torch.autograd.Function):
     """Differentiable in the images; s gets no gradient. Backward = the same
-    shift with -s (the exact adjoint of a per-row 2-tap shift)."""
+    shift with -s (the exact adjoint of a 2-tap shift along one axis). The
+    gradient is dense over the copies: for an ``expand``ed input, autograd's
+    own expand backward sums it, outside the kernel."""
 
     @staticmethod
-    def forward(ctx, images, s):
+    def forward(ctx, images, s, axis):
         ctx.save_for_backward(s)
-        return _shear_rows_on_device(images, s)
+        ctx.axis = axis
+        return _shear_on_device(axis, images, s)
 
     @staticmethod
     def backward(ctx, grad):
         (s,) = ctx.saved_tensors
-        return _shear_rows_on_device(grad.contiguous(), -s), None
+        if not _planes_contiguous(grad):
+            grad = grad.contiguous()
+        return _shear_on_device(ctx.axis, grad, -s), None, None
 
 
 def shear_rows_dispatch(images: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Per-row fractional x-shift of contiguous (N, H, W) images by s (N, H):
-    the CUDA kernel for CUDA tensors, ``shear_rows`` for CPU tensors.
-    Differentiable in images; s is treated as a constant."""
-    return ShearRows.apply(images, s.detach())
+    """Per-row fractional x-shift of (N, H, W) or (N, C, H, W) images by
+    s (N, H): the CUDA kernel for CUDA tensors, ``shear_rows`` for CPU
+    tensors. The (H, W) planes must be contiguous; the strides over N and C
+    are free (0 for an ``expand``ed batch). Differentiable in images; s is
+    treated as a constant."""
+    return _Shear.apply(images, s.detach(), "rows")
 
 
-def _shear_pass_x(images: torch.Tensor, coef: torch.Tensor, offset: torch.Tensor,
-                  center: float, interpolation: str = "bilinear") -> torch.Tensor:
-    """Row shift s(n, y) = coef[n] * (y - center) + offset[n] of (N, H, W, C).
+def shear_cols_dispatch(images: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Per-column fractional y-shift by s (N, W): ``shear_rows_dispatch``'s
+    counterpart along H, with the same layouts and rules."""
+    return _Shear.apply(images, s.detach(), "cols")
 
-    interpolation="nearest" rounds each row's shift to an integer, so the
-    lerp selects exactly one tap and output values are a subset of the input
-    values (label images). Channels fold into the batch axis."""
+
+def pass_shifts(coef: torch.Tensor, offset: torch.Tensor, center: float,
+                length: int, interpolation: str = "bilinear") -> torch.Tensor:
+    """s[n, i] = coef[n] * (i - center) + offset[n] for i in [0, length): the
+    shifts of one shear pass, per row (x pass) or per column (y pass).
+
+    interpolation="nearest" rounds each shift to an integer, so the lerp
+    selects exactly one tap and output values are a subset of the input
+    values (label images)."""
     if interpolation not in ("bilinear", "nearest"):
         raise ValueError(f"interpolation must be bilinear or nearest, got {interpolation!r}")
-    n, h, w, c = images.shape
-    y = torch.arange(h, dtype=torch.float32, device=images.device)
-    s = coef[:, None] * (y[None, :] - center) + offset[:, None]
-    if interpolation == "nearest":
-        s = torch.round(s)
-    flat = images.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous()
-    s_rep = s.repeat_interleave(c, dim=0) if c > 1 else s
-    out = shear_rows_dispatch(flat, s_rep.contiguous())
-    return out.reshape(n, c, h, w).permute(0, 2, 3, 1)
+    i = torch.arange(length, dtype=torch.float32, device=coef.device)
+    s = coef[:, None] * (i[None, :] - center) + offset[:, None]
+    return torch.round(s) if interpolation == "nearest" else s
 
 
-def _shear_pass_y(images: torch.Tensor, coef: torch.Tensor, offset: torch.Tensor,
-                  center: float, interpolation: str = "bilinear") -> torch.Tensor:
-    out = _shear_pass_x(images.transpose(1, 2), coef, offset, center,
-                        interpolation)
-    return out.transpose(1, 2)
-
-
-SHEAR_PASSES = 3  # kernel launches per warp (channels ride the batch axis)
+def _to_planes(images: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, C, H, W) with contiguous (H, W) planes. A batch that
+    repeats one image (stride 0 over N) stays one image's planes, expanded."""
+    n = images.shape[0]
+    if n > 1 and images.stride(0) == 0:
+        return images[0].permute(2, 0, 1).contiguous()[None].expand(n, -1, -1, -1)
+    return images.permute(0, 3, 1, 2).contiguous()
 
 
 def shear_taps(angle_max: float, size: int) -> int:
@@ -130,7 +165,7 @@ def paeth_rotate_translate(images: torch.Tensor, angles: torch.Tensor,
     squeeze = images.dim() == 3
     if squeeze:
         images = images[..., None]
-    n, h, w = images.shape[:3]
+    h, w = images.shape[1:3]
     cx = (w - 1) / 2.0
     cy = (h - 1) / 2.0
 
@@ -151,9 +186,11 @@ def paeth_rotate_translate(images: torch.Tensor, angles: torch.Tensor,
     off_b = ty + b * cx
     off_c = a * cy
 
-    out = _shear_pass_x(images, a, off_a, cy, interpolation)
-    out = _shear_pass_y(out, b, off_b, cx, interpolation)
-    out = _shear_pass_x(out, a, off_c, cy, interpolation)
+    out = shear_rows_dispatch(_to_planes(images),
+                              pass_shifts(a, off_a, cy, h, interpolation))
+    out = shear_cols_dispatch(out, pass_shifts(b, off_b, cx, w, interpolation))
+    out = shear_rows_dispatch(out, pass_shifts(a, off_c, cy, h, interpolation))
+    out = out.permute(0, 2, 3, 1)
     return out[..., 0] if squeeze else out
 
 

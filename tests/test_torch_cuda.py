@@ -1,4 +1,4 @@
-"""On-card tests of the port's CUDA shear kernel (``requires_cuda``).
+"""On-card tests of the port's CUDA shear kernels (``requires_cuda``).
 
 Each test asks for the ``cuda_device`` fixture, which skips where
 ``torch.cuda.is_available()`` is false. This file imports neither jax nor
@@ -17,8 +17,13 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
     build_model,
 )
 from deeplabv3plus_augmented_superresolution_tpu_torch.ops import shear_kernel
+from deeplabv3plus_augmented_superresolution_tpu_torch.ops.fused_operator import (
+    OPERATOR_LAUNCHES,
+)
 from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
-    SHEAR_PASSES,
+    WARP_LAUNCHES,
+    shear_cols,
+    shear_cols_dispatch,
     shear_rows,
     shear_rows_dispatch,
 )
@@ -54,6 +59,34 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
 
 
+AXES = {
+    "rows": (shear_kernel.shear_rows_cuda, shear_rows_dispatch, shear_rows),
+    "cols": (shear_kernel.shear_cols_cuda, shear_cols_dispatch, shear_cols),
+}
+
+
+def _axis_case(axis, n=4, h=128, w=512, seed=7):
+    """Images and shifts for one axis: s is (N, H) for rows, (N, W) for cols."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 1, (n, h, w)).astype(np.float32)
+    length = h if axis == "rows" else w
+    coefs = rng.uniform(-0.15, 0.15, n).astype(np.float32)
+    offs = rng.uniform(-0.4 * (w if axis == "rows" else h),
+                       0.4 * (w if axis == "rows" else h), n).astype(np.float32)
+    i = np.arange(length, dtype=np.float32)
+    s = (coefs[:, None] * (i[None, :] - length / 2) + offs[:, None]).astype(np.float32)
+    return torch.from_numpy(images), torch.from_numpy(s)
+
+
+def _assert_matches_plain(got, inp, shift, plain, dtype):
+    """f32 within 1e-5 (the kernel may contract to an FMA); bf16 within one
+    bf16 ulp of the f32 result."""
+    ref = plain(inp.float(), shift)
+    tol = 1e-5 if dtype == torch.float32 else _bf16_ulp(ref)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert bool(((got.float() - ref).abs() <= tol).all())
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, dtype):
@@ -71,23 +104,92 @@ def test_kernel_matches_plain_version(cuda_device, dtype):
     torch.cuda.synchronize()
     assert shear_kernel.shear_rows_cuda.launches == before + 2
     for got, inp, shift in ((out, x, st), (grad, g, -st)):
-        ref = shear_rows(inp.float(), shift)
-        tol = 1e-5 if dtype == torch.float32 else _bf16_ulp(ref)
-        assert got.dtype == dtype
-        assert bool(((got.float() - ref).abs() <= tol).all())
+        _assert_matches_plain(got, inp, shift, shear_rows, dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_column_kernel_matches_plain_version(cuda_device, dtype):
+    """shear_cols forward and backward against its plain version, shifts up
+    to 0.4 of the height so that both edges zero-fill."""
+    images, s = _axis_case("cols")
+    x = images.to(cuda_device, dtype)
+    st = s.to(cuda_device)
+    g = torch.rand(x.shape, generator=torch.Generator().manual_seed(1)).to(cuda_device, dtype)
+    before = shear_kernel.shear_cols_cuda.launches
+    xg = x.clone().requires_grad_(True)
+    out = shear_cols_dispatch(xg, st)
+    (grad,) = torch.autograd.grad(out, xg, g)
+    torch.cuda.synchronize()
+    assert shear_kernel.shear_cols_cuda.launches == before + 2
+    for got, inp, shift in ((out, x, st), (grad, g, -st)):
+        _assert_matches_plain(got, inp, shift, shear_cols, dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stride_0_and_channel_planes_on_card(cuda_device, axis, dtype):
+    """An expanded (C, H, W) image (stride 0 over the copies) is read in
+    place: same values as the kernel on the materialised batch, bit for bit,
+    and within tolerance of the plain version; the image's gradient is the
+    sum over the copies (1e-4: f32 sums of 4 terms in another order; bf16
+    gradients are compared in f32 at 4 ulps of the sum)."""
+    kernel, dispatch, plain = AXES[axis]
+    images, s = _axis_case(axis, n=4, h=64, w=256, seed=11)
+    st = s.to(cuda_device)
+    planes = images[:3].to(cuda_device, dtype).requires_grad_(True)     # (C, H, W)
+    expanded = planes[None].expand(4, 3, 64, 256)
+    out = dispatch(expanded, st)
+    copied = expanded.detach().contiguous()
+    assert bool((out == kernel(copied, st)).all())
+    _assert_matches_plain(out.detach(), copied, st, plain, dtype)
+    g = torch.rand(out.shape, generator=torch.Generator().manual_seed(2)).to(cuda_device, dtype)
+    (grad,) = torch.autograd.grad(out, planes, g)
+    ref = plain(g.float(), -st).sum(0)
+    tol = 1e-4 if dtype == torch.float32 else 4 * _bf16_ulp(ref)
+    assert tuple(grad.shape) == (3, 64, 256)
+    assert bool(((grad.float() - ref).abs() <= tol).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_odd_width_and_unaligned_views_on_card(cuda_device, axis, dtype):
+    """Width 509 (no 16-byte rows: the row kernel's scalar path, the column
+    kernel's one-column path) and a view that starts one element into its
+    buffer (a base pointer off the vector boundary)."""
+    kernel, _, plain = AXES[axis]
+    for w, offset in ((509, 0), (512, 1)):
+        images, s = _axis_case(axis, n=3, h=96, w=w, seed=13 + w)
+        buffer = torch.zeros(images.numel() + offset, device=cuda_device, dtype=dtype)
+        buffer[offset:] = images.to(cuda_device, dtype).flatten()
+        x = buffer[offset:].view(images.shape)
+        st = s.to(cuda_device)
+        _assert_matches_plain(kernel(x, st), x, st, plain, dtype)
 
 
 @pytest.mark.requires_cuda
 def test_kernel_rejects_what_it_cannot_run(cuda_device):
     images, s = _case()
     x, st = images.to(cuda_device), s.to(cuda_device)
-    with pytest.raises(ValueError, match="contiguous"):
-        shear_kernel.shear_rows_cuda(x.transpose(1, 2),
-                                     torch.zeros(4, 512, device=cuda_device))
+    for wrapper, dim in ((shear_kernel.shear_rows_cuda, 1),
+                         (shear_kernel.shear_cols_cuda, 2)):
+        for view in (x.transpose(1, 2), x[..., ::2]):
+            with pytest.raises(ValueError, match="contiguous"):
+                wrapper(view, torch.zeros(4, view.shape[dim], device=cuda_device))
+    with pytest.raises(ValueError, match="s must be"):
+        shear_kernel.shear_cols_cuda(x, st)            # (N, H) shifts, not (N, W)
     with pytest.raises(TypeError):
         shear_kernel.shear_rows_cuda(x.half(), st)
     with pytest.raises(ValueError, match="but s on"):
         shear_kernel.shear_rows_cuda(x, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        shear_kernel.shear_cols_cuda(images, torch.zeros(4, 512))
+    # Taken as they are: a batch-strided view and a stride-0 batch.
+    strided = torch.cat([x, x])[::2]
+    assert bool((shear_kernel.shear_rows_cuda(strided, st[[0, 2, 0, 2]])
+                 == shear_kernel.shear_rows_cuda(strided.contiguous(), st[[0, 2, 0, 2]])).all())
 
 
 @pytest.mark.requires_cuda
@@ -95,8 +197,9 @@ def test_asr_step_on_card_matches_cpu(cuda_device):
     """asr_step at 64 px (f32 model, 4 copies, 20 steps) on the card against
     the same call on the CPU: masks agree on >= 99% of pixels, the SR target
     within 1e-2 (TF32 off; see chip_smoke.py). With the stencil given, one
-    image launches the kernel 3 times for the copies warp and 6 times for
-    b = A^T y."""
+    image launches shear_rows 2 times and shear_cols once for the copies
+    warp, and twice as many again for b = A^T y (the operator forward and
+    its adjoint)."""
     cfg = DeepLabConfig(input_shape=(64, 64, 3), final_upsample=False)
     sr_cfg = SRConfig(num_aug=4, feature_size=(16, 16), output_size=(64, 64),
                       angle_max=0.15, num_iter=20, solver_impl="gram")
@@ -114,12 +217,16 @@ def test_asr_step_on_card_matches_cpu(cuda_device):
             class_id = int(torch.bincount(labels.flatten(), minlength=21).argmax())
         a, sh = angles.to(dev), shifts.to(dev)
         coeffs = precompute_gram_stencil(a, sh, sr_cfg)
-        before = shear_kernel.shear_rows_cuda.launches
+        kernels = {"shear_rows": shear_kernel.shear_rows_cuda,
+                   "shear_cols": shear_kernel.shear_cols_cuda}
+        before = {name: k.launches for name, k in kernels.items()}
         out = asr_step(model, image.to(dev), a, sh, sr_cfg, class_id,
                        gram_coeffs=coeffs, return_targets=True)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert shear_kernel.shear_rows_cuda.launches - before == 3 * SHEAR_PASSES
+            for name, k in kernels.items():
+                assert k.launches - before[name] == (WARP_LAUNCHES[name]
+                                                     + 2 * OPERATOR_LAUNCHES[name])
         outs[dev.type] = {k: v.cpu() for k, v in out.items()}
     for key in ("aug", "standard"):
         assert float((outs["cpu"][key] == outs["cuda"][key]).float().mean()) >= 0.99

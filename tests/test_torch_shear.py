@@ -126,10 +126,26 @@ def test_dispatch_rejects_what_the_kernel_rejects():
     x, st = torch.from_numpy(images), torch.from_numpy(s)
     with pytest.raises(ValueError, match="contiguous"):
         shear_rows_dispatch(x.transpose(1, 2), st)
+    with pytest.raises(ValueError, match="contiguous"):
+        shear_rows_dispatch(x[..., ::2], st)
+    with pytest.raises(ValueError, match="s must be"):
+        shear_rows_dispatch(x, st[:, :32])
     with pytest.raises(TypeError):
         shear_rows_dispatch(x.double(), st)
+    with pytest.raises(TypeError):
+        shear_rows_dispatch(x.half(), st)
+    with pytest.raises(ValueError, match="but s on"):
+        shear_rows_dispatch(x, st.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         shear_kernel.shear_rows_cuda(x, st)
+    # What the kernel takes, the dispatch takes: a batch-strided view and a
+    # stride-0 batch go through as they are.
+    np.testing.assert_array_equal(
+        shear_rows_dispatch(torch.from_numpy(np.repeat(images, 2, 0))[::2], st).numpy(),
+        shear_rows_dispatch(x, st).numpy())
+    np.testing.assert_array_equal(
+        shear_rows_dispatch(x[0][None].expand(3, 64, 64), st).numpy(),
+        shear_rows_dispatch(x[0][None].repeat(3, 1, 1), st).numpy())
 
 
 def _smooth_batch(n=3, size=64, c=1, seed=0):
