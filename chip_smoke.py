@@ -1,6 +1,6 @@
 """On-card smoke run of the PyTorch/CUDA port's serving path.
 
-    python3 chip_smoke.py [--seed 0] [--images 8] [--stage-trace]
+    python3 chip_smoke.py [--seed 0] [--images 6] [--stage-trace]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and the repository checkout. In
@@ -9,24 +9,38 @@ order, each phase raising on failure:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA shear kernels from csrc/shear_rows.cu and
      csrc/shear_cols.cu (one nvcc call, ptxas report);
-  3. each kernel vs its plain version at the serving path's shapes and
-     layouts (contiguous and stride-0 input), forward and backward, with
-     per-call device times (CUDA events around 5 back-to-back calls behind a
-     spin kernel, median of 10 such windows) of the kernel, the
-     plain version and the library yardstick (grid_sample on a prebuilt
-     grid, used nowhere in the port) beside the kernel's bound;
-  4. the full-size Gram stencil (100 copies, 512 -> 128) against the
-     autograd normal operator;
-  5. a small-input end-to-end check: ``asr_step`` on the card against the
-     same call on the CPU (the plain versions);
-  6. serving: ``cli.run_asr.serve`` on N images at full width (Xception OS16,
-     bf16, 100 copies, 300 AMSGrad steps, random weights from seed 0), as a
-     user runs it (no synchronisation inside an image): seconds per image,
-     peak memory and the launch count of each kernel; then a synchronised
-     per-stage profile of the first PROFILE_IMAGES images. With
-     --stage-trace, also a torch.profiler window around the stages ``warp``
-     and ``b`` of two more images: device kernels and device time of each.
+  3. the full-size Gram stencils (100 copies, 512 -> 128 for Xception and
+     512 -> 64 for MobileNetV2) against the autograd normal operator;
+  4. serving: ``cli.run_asr.serve`` at full width (512 px, bf16, 100 copies,
+     300 AMSGrad steps, random weights from seed 0), as a user runs it (no
+     synchronisation inside an image), on three configurations: Xception
+     OS16, one class, aug (N images, then a synchronised per-stage profile
+     of the first PROFILE_IMAGES); Xception OS16, all 20 classes, aug + max
+     + mean and the label map, unchunked and in class groups; MobileNetV2
+     OS8, feature 64, its own stencil, one class, aug + max + mean. Each
+     reports seconds per image, the first image, peak memory, mask
+     fractions and the launches of each kernel, counted from 0 for that
+     path, against the launches its design implies. With --stage-trace,
+     also a torch.profiler window around the stages ``warp`` and ``b`` of
+     two more images: device kernels and device time of each;
+  5. each kernel vs its plain version at the serving paths' shapes and
+     layouts (contiguous, stride-0 and class-major input: the copies warp,
+     the fused operator at features 128 and 64 with one or 20 target planes,
+     the inverse warp of max/mean SR with one or 20 class planes), forward
+     and backward, with per-call device times (CUDA events around 5
+     back-to-back calls behind a spin kernel, median of 10 such windows) of
+     the kernel, the plain version and the library yardstick (grid_sample on
+     a prebuilt grid, used nowhere in the port) beside the kernel's bound.
+     A case that moves less than ROTATE_BYTES is timed on a ring of inputs
+     and outputs that together exceed the card's L2, so that its time is
+     one of memory, not of the cache;
+  6. small-input end-to-end checks, each on the card against the same call
+     on the CPU (the plain versions): ``asr_step`` with aug, max and mean;
+     ``asr_step_multiclass`` of 3 classes with the label map, unchunked and
+     in class groups of 2; MobileNetV2.
 
+The serving paths run before the kernel cases and the CPU checks, so that
+neither leaves load on the card or the host while a path is timed.
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX
 package.
@@ -34,6 +48,7 @@ package.
 
 import argparse
 import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -62,6 +77,11 @@ E2E_MASK_AGREE = 0.99
 E2E_TARGET_ATOL = 1e-2
 # Images of the synchronised per-stage profile that follows the serving run.
 PROFILE_IMAGES = 4
+# Images of the 20-class and the MobileNetV2 serving paths, and the class
+# group size of the 20-class path's chunked run (4 groups of 5).
+MULTI_IMAGES = 4
+MOBILENET_IMAGES = 4
+CLASS_CHUNK = 5
 # Length of the spin kernel ahead of each timing window (about 2 ms at the
 # card's clock): long enough for the host to enqueue the window behind it.
 SPIN_CYCLES = 4_000_000
@@ -73,6 +93,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # One output element: 1 - t, two products, one sum.
 OPS_PER_ELEMENT = 4
+# The card's L2 (50 MB on the H100 SXM). A kernel case that moves less than
+# four times this is timed on a ring of inputs (and their outputs) that
+# together move at least that much, so that its time is the memory's.
+L2_BYTES = 50 * 2**20
+ROTATE_BYTES = 4 * L2_BYTES
 
 # Both kernels stand in for the one TPU kernel: the JAX package runs the y
 # pass through it on a transposed array.
@@ -131,59 +156,94 @@ def median_ms(fn, iters: int = 10, calls: int = 5) -> float:
     return statistics.median(times)
 
 
+def rotating(fn, inputs):
+    """A call of fn on the next of inputs in turn. Each output is kept until
+    its slot comes round again, so that with a ring larger than L2 no call
+    finds its input or its output's memory in the cache."""
+    outputs = [None] * len(inputs)
+    turn = itertools.count()
+
+    def call():
+        i = next(turn) % len(inputs)
+        outputs[i] = fn(inputs[i])
+    return call
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     exponent = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
     return torch.exp2(exponent - 7)
 
 
-def warp_coefficients(angles: torch.Tensor, shifts: torch.Tensor, h: int, w: int):
-    """Coefficients and offsets of the three passes (ops/shear_warp.py)."""
-    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    a = -torch.tan(angles / 2.0)
-    dx, dy = shifts[:, 0], shifts[:, 1]
-    tx = cos * (-dx) - sin * (-dy) + (cx - (cos * cx - sin * cy))
-    ty = sin * (-dx) + cos * (-dy) + (cy - (sin * cx + cos * cy))
-    return a, tx - a * ty + a * cy, sin, ty + sin * cx, a * cy
-
-
 def kernel_cases(device, angles, shifts):
-    """(name, kernel, shape, dtype, s, stride-0 input, primary) for every
-    layout in which the serving path reaches a kernel, plus the edge probes."""
-    def pass_shifts(coef, offset, center, length):
-        i = torch.arange(length, dtype=torch.float32, device=device)
-        return coef[:, None] * (i[None, :] - center) + offset[:, None]
+    """(name, kernel, shape, dtype, s, layout, primary) for every layout in
+    which the serving paths reach a kernel, plus the edge probes. layout:
+    "dense"; "stride0", every copy reads the same planes (stride 0 over the
+    copies); "class_major", the (N, K, H, W) view of a (K, N, H, W) stack, as
+    the inverse warp reads the upsampled class masks."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        inverse_shifts, paeth_coefficients, pass_shifts)
 
-    a, off_a, b, off_b, off_c = warp_coefficients(angles, shifts, 512, 512)
+    def decimated_shifts(a, off_c, feature):
+        yl = (torch.arange(feature, dtype=torch.float32, device=device) + 0.5) \
+            * (512 / feature) - 0.5
+        return a[:, None] * (yl[None, :] - 255.5) + off_c[:, None]
+
+    a, off_a, b, off_b, off_c = paeth_coefficients(angles, shifts, 512, 512)
     s_a = pass_shifts(a, off_a, 255.5, 512)          # x pass A, per row
     s_b = pass_shifts(b, off_b, 255.5, 512)          # y pass, per column
     s_c3 = pass_shifts(a, off_c, 255.5, 512)         # the warp's last x pass
-    yl = (torch.arange(128, dtype=torch.float32, device=device) + 0.5) * 4.0 - 0.5
-    s_c = a[:, None] * (yl[None, :] - 255.5) + off_c[:, None]
+    s_c = decimated_shifts(a, off_c, 128)
+    s_c64 = decimated_shifts(a, off_c, 64)
+    # the inverse warp of max/mean SR
+    ia, ioff_a, ib, ioff_b, ioff_c = paeth_coefficients(*inverse_shifts(angles, shifts),
+                                                        512, 512)
+    si_a = pass_shifts(ia, ioff_a, 255.5, 512)
+    si_b = pass_shifts(ib, ioff_b, 255.5, 512)
+    si_c = pass_shifts(ia, ioff_c, 255.5, 512)
     ramp = torch.linspace(-1.0, 1.0, 128, device=device)
     probe = torch.stack([ramp + 240.25, ramp - 239.5])
     bf16, f32 = torch.bfloat16, torch.float32
     return [
         ("copies warp x pass 3 (100,3,512,512) bf16", "shear_rows",
-         (100, 3, 512, 512), bf16, s_c3, False, True),
+         (100, 3, 512, 512), bf16, s_c3, "dense", True),
         ("copies warp x pass 1 (100,3,512,512) bf16 from one stride-0 image",
-         "shear_rows", (100, 3, 512, 512), bf16, s_a, True, False),
+         "shear_rows", (100, 3, 512, 512), bf16, s_a, "stride0", False),
         ("fused pass A backward (100,512,512) f32", "shear_rows",
-         (100, 512, 512), f32, s_a, False, False),
+         (100, 512, 512), f32, s_a, "dense", False),
         ("fused pass A (100,512,512) f32 from one stride-0 plane", "shear_rows",
-         (100, 512, 512), f32, s_a, True, False),
+         (100, 512, 512), f32, s_a, "stride0", False),
         ("fused pass C (100,128,512) f32", "shear_rows", (100, 128, 512), f32, s_c,
-         False, False),
+         "dense", False),
+        ("fused pass C at feature 64 (MobileNetV2) (100,64,512) f32", "shear_rows",
+         (100, 64, 512), f32, s_c64, "dense", False),
+        ("fused pass A, 20 target planes (b of 20 classes) (100,20,512,512) f32 "
+         "from stride-0 planes", "shear_rows", (100, 20, 512, 512), f32, s_a,
+         "stride0", False),
+        ("fused pass C, 20 planes (100,20,128,512) f32", "shear_rows",
+         (100, 20, 128, 512), f32, s_c, "dense", False),
+        ("inverse warp x pass 1 (100,1,512,512) f32", "shear_rows",
+         (100, 1, 512, 512), f32, si_a, "dense", False),
+        ("inverse warp x pass 3 (100,1,512,512) f32", "shear_rows",
+         (100, 1, 512, 512), f32, si_c, "dense", False),
+        ("inverse warp x pass 1, 20 class planes (100,20,512,512) f32, class-major",
+         "shear_rows", (100, 20, 512, 512), f32, si_a, "class_major", False),
+        ("inverse warp x pass 3, 20 class planes (100,20,512,512) f32", "shear_rows",
+         (100, 20, 512, 512), f32, si_c, "dense", False),
         ("budget probe +-240 (2,128,512) f32", "shear_rows", (2, 128, 512), f32, probe,
-         False, False),
+         "dense", False),
         ("copies warp y pass (100,3,512,512) bf16", "shear_cols",
-         (100, 3, 512, 512), bf16, s_b, False, True),
+         (100, 3, 512, 512), bf16, s_b, "dense", True),
         ("fused pass B (100,512,512) f32", "shear_cols", (100, 512, 512), f32, s_b,
-         False, False),
+         "dense", False),
+        ("inverse warp y pass (100,1,512,512) f32", "shear_cols", (100, 1, 512, 512),
+         f32, si_b, "dense", False),
+        ("inverse warp y pass, 20 class planes (100,20,512,512) f32 (also fused "
+         "pass B of 20 planes)", "shear_cols", (100, 20, 512, 512), f32, si_b,
+         "dense", False),
         ("edge probe +-240 (2,512,128) f32", "shear_cols", (2, 512, 128), f32, probe,
-         False, False),
+         "dense", False),
         ("edge probe +-240 (2,3,512,128) bf16", "shear_cols", (2, 3, 512, 128), bf16,
-         probe, False, False),
+         probe, "dense", False),
     ]
 
 
@@ -217,28 +277,27 @@ def phase_kernel(device, angles, shifts):
         shear_kernel, shear_warp)
 
     kernels = {"shear_rows": (shear_kernel.shear_rows_cuda, shear_warp.shear_rows,
-                              shear_warp.shear_rows_dispatch)}
-    # With --package-root the package may be an earlier one whose only kernel
-    # takes contiguous (N, H, W): it gets the cases it can run, channels folded.
-    earlier = not hasattr(shear_kernel, "shear_cols_cuda")
-    if not earlier:
-        kernels["shear_cols"] = (shear_kernel.shear_cols_cuda, shear_warp.shear_cols,
-                                 shear_warp.shear_cols_dispatch)
+                              shear_warp.shear_rows_dispatch),
+               "shear_cols": (shear_kernel.shear_cols_cuda, shear_warp.shear_cols,
+                              shear_warp.shear_cols_dispatch)}
     gen = torch.Generator(device=device).manual_seed(0)
     results = []
-    for name, kernel, shape, dtype, s, stride0, primary in kernel_cases(
+    for name, kernel, shape, dtype, s, layout, primary in kernel_cases(
             device, angles, shifts):
-        if earlier and (stride0 or kernel not in kernels):
-            continue
-        if earlier and len(shape) == 4:
-            s = s.repeat_interleave(shape[1], dim=0)
-            shape = (shape[0] * shape[1], *shape[2:])
         launch, plain, dispatch = kernels[kernel]
         s = s.contiguous()
-        source_shape = shape[1:] if stride0 else shape
-        x = torch.rand(source_shape, generator=gen, device=device).to(dtype)
-        if stride0:
-            x = x[None].expand(shape)
+        stride0 = layout == "stride0"
+
+        def make_input():
+            if stride0:
+                return torch.rand(shape[1:], generator=gen,
+                                  device=device).to(dtype)[None].expand(shape)
+            if layout == "class_major":
+                return torch.rand((shape[1], shape[0], *shape[2:]), generator=gen,
+                                  device=device).to(dtype).transpose(0, 1)
+            return torch.rand(shape, generator=gen, device=device).to(dtype)
+
+        x = make_input()
         g = torch.rand(shape, generator=gen, device=device).to(dtype)
         got = launch(x, s)
         xg = x.detach().requires_grad_(True)
@@ -271,24 +330,31 @@ def phase_kernel(device, angles, shifts):
         bound_ms = max(by_bytes, by_ops)
         library = library_call(kernel, x, s)
         library_err = float((library().reshape(shape).float() - got.float()).abs().max())
-        ms = median_ms(lambda: launch(x, s))
-        plain_ms = median_ms(lambda: plain(x, s))
-        library_ms = median_ms(library)
-        del library
+        del library, g, got, got_bwd, xg
+        copies = -(-ROTATE_BYTES // moved)
+        ring = [x] + [make_input() for _ in range(copies - 1)]
+        ms = median_ms(rotating(lambda xi: launch(xi, s), ring))
+        plain_ms = median_ms(rotating(lambda xi: plain(xi, s), ring))
+        library_ms = median_ms(rotating(lambda f: f(), [library_call(kernel, xi, s)
+                                                         for xi in ring]))
+        del x, ring
+        torch.cuda.empty_cache()
         results.append({
-            "case": name, "kernel": kernel, "primary": primary, "stride0": stride0,
+            "case": name, "kernel": kernel, "primary": primary, "layout": layout,
+            "ring": copies,
             "fwd_err": errs[0], "bwd_err": errs[1], "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": moved, "share_of_bound": bound_ms / ms})
-        log(f"[kernel] {kernel} {name}: fwd err {errs[0]:.3g} bwd err {errs[1]:.3g} "
+        log(f"[kernel] {kernel} {name} (ring of {copies}): fwd err {errs[0]:.3g} "
+            f"bwd err {errs[1]:.3g} "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms grid_sample {library_ms:.4f} ms "
             f"(differs by {library_err:.3g}) bound {bound_ms:.4f} ms "
             f"({moved / 1e6:.1f} MB), share of bound {bound_ms / ms:.1%}")
     return results
 
 
-def phase_stencil(device, angles, shifts, sr_cfg):
+def phase_stencil(device, angles, shifts, sr_cfg, label):
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import apply_gram
     from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
         forward_operator, precompute_gram_stencil)
@@ -309,46 +375,92 @@ def phase_stencil(device, angles, shifts, sr_cfg):
     via = apply_gram(x, coeffs)
     scale = float(direct.abs().max())
     err = float((via - direct).abs().max())
-    log(f"[stencil] {tuple(coeffs.shape)} extracted in {seconds:.2f}s; "
+    log(f"[stencil] {label}: {tuple(coeffs.shape)} for 512 -> "
+        f"{sr_cfg.feature_size[0]} extracted in {seconds:.2f}s; "
         f"|G x - A^T A x| max {err:.3g} (scale {scale:.3g}, "
         f"rel {err / scale:.3g}, bound {STENCIL_RTOL})")
     if not (np.isfinite(err) and err <= STENCIL_RTOL * scale):
-        raise AssertionError("[stencil] stencil disagrees with the normal operator")
+        raise AssertionError(f"[stencil] {label}: stencil disagrees with the "
+                             "normal operator")
     return coeffs
 
 
+def _compare(label, cpu, gpu):
+    """Masks agree on >= E2E_MASK_AGREE of pixels, continuous targets within
+    E2E_TARGET_ATOL, on every key of one step's result."""
+    if set(cpu) != set(gpu):
+        raise AssertionError(f"[e2e-small] {label}: keys differ")
+    agree, err = {}, {}
+    for key in cpu:
+        if key.endswith("_target"):
+            err[key] = float((cpu[key] - gpu[key]).abs().max())
+        else:
+            agree[key] = float((cpu[key] == gpu[key]).float().mean())
+    log(f"[e2e-small] {label}: mask agreement {agree}, target max err {err} "
+        f"(bounds {E2E_MASK_AGREE}, {E2E_TARGET_ATOL})")
+    if min(agree.values()) < E2E_MASK_AGREE or not all(
+            e <= E2E_TARGET_ATOL for e in err.values()):
+        raise AssertionError(f"[e2e-small] {label}: the two disagree")
+
+
 def phase_small_e2e(device):
-    """asr_step on the card vs the same call on the CPU (plain versions)."""
+    """The per-image programs on the card vs the same calls on the CPU (the
+    plain versions), at 64 px, f32: asr_step with aug, max and mean;
+    asr_step_multiclass of 3 classes with the label map, unchunked and in
+    class groups of 2; asr_step on MobileNetV2 (feature 8)."""
+    import dataclasses
+
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
         make_sr_config)
     from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
         DeepLabConfig, build_model)
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
-        asr_step, sample_augmentations)
+        asr_step, asr_step_multiclass, sample_augmentations)
 
     cfg = DeepLabConfig(input_shape=(64, 64, 3), final_upsample=False)
+    mob_cfg = dataclasses.replace(cfg, backbone="mobilenet")
     sr_cfg = make_sr_config(None, num_aug=4, feature_size=(16, 16),
                             output_size=(64, 64), angle_max=0.15, num_iter=30)
+    mob_sr_cfg = dataclasses.replace(sr_cfg, feature_size=(8, 8))
     image = np.random.default_rng(7).uniform(0, 1, (64, 64, 3)).astype(np.float32)
     angles, shifts = sample_augmentations(torch.Generator().manual_seed(3), 4,
                                           0.15, 8.0, device="cpu")
+    sr_types = ("aug", "max", "mean")
     outs = {}
     for dev in (torch.device("cpu"), device):
         model = build_model(cfg, seed=0, device=dev)
-        if not outs:  # a class the random model predicts, so masks are non-empty
-            labels = model(torch.as_tensor(image)[None]).argmax(-1)
-            class_id = int(torch.bincount(labels.flatten(), minlength=21).argmax())
-        outs[dev.type] = {k: v.cpu() for k, v in asr_step(
-            model, torch.as_tensor(image, device=dev), angles.to(dev),
-            shifts.to(dev), sr_cfg, class_id, return_targets=True).items()}
-    cpu, gpu = outs["cpu"], outs["cuda"]
-    agree = {k: float((cpu[k] == gpu[k]).float().mean()) for k in ("aug", "standard")}
-    target_err = float((cpu["aug_target"] - gpu["aug_target"]).abs().max())
-    log(f"[e2e-small] class {class_id}: mask agreement {agree}, aug_target "
-        f"max err {target_err:.3g} (bounds {E2E_MASK_AGREE}, {E2E_TARGET_ATOL}); "
-        f"aug fraction {float((gpu['aug'] > 0).float().mean()):.4f}")
-    if min(agree.values()) < E2E_MASK_AGREE or not target_err <= E2E_TARGET_ATOL:
-        raise AssertionError("[e2e-small] card and CPU disagree")
+        mob = build_model(mob_cfg, seed=0, device=dev)
+        img, a, sh = torch.as_tensor(image, device=dev), angles.to(dev), shifts.to(dev)
+        if not outs:  # classes the random models predict, so masks are non-empty
+            with torch.no_grad():
+                counts = torch.bincount(model(img[None]).argmax(-1).flatten(),
+                                        minlength=21)
+                class_ids = tuple(int(c) for c in counts.argsort(descending=True)[:3])
+                mob_class = int(torch.bincount(mob(img[None]).argmax(-1).flatten(),
+                                               minlength=21).argmax())
+        runs = {
+            "asr_step aug+max+mean": asr_step(
+                model, img, a, sh, sr_cfg, class_ids[0], sr_types=sr_types,
+                return_targets=True),
+            "asr_step_multiclass": asr_step_multiclass(
+                model, img, a, sh, sr_cfg, class_ids, sr_types=sr_types,
+                return_targets=True, return_label_map=True),
+            "asr_step_multiclass class_chunk 2": asr_step_multiclass(
+                model, img, a, sh, sr_cfg, class_ids, sr_types=sr_types,
+                class_chunk=2, return_targets=True, return_label_map=True),
+            "asr_step MobileNetV2": asr_step(
+                mob, img, a, sh, mob_sr_cfg, mob_class, sr_types=sr_types,
+                return_targets=True),
+        }
+        outs[dev.type] = {label: {k: v.cpu() for k, v in out.items()}
+                          for label, out in runs.items()}
+    log(f"[e2e-small] classes {class_ids} (Xception), {mob_class} (MobileNetV2)")
+    for label in outs["cpu"]:
+        _compare(label, outs["cpu"][label], outs["cuda"][label])
+    _compare("class_chunk 2 vs 0 on the card", outs["cuda"]["asr_step_multiclass"],
+             outs["cuda"]["asr_step_multiclass class_chunk 2"])
+    gpu = outs["cuda"]["asr_step aug+max+mean"]
+    log(f"[e2e-small] aug fraction {float((gpu['aug'] > 0).float().mean()):.4f}")
 
 
 def make_images(seed: int, n: int):
@@ -418,72 +530,172 @@ def phase_stage_trace(device, images, model, sr_cfg, class_id, coeffs):
             + " (one window per image, the first includes first-use work)")
 
 
-def phase_serve(device, seed, n_images, coeffs, sr_cfg):
-    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
-        build_deeplab, serve)
+def expected_launches(sr_types, groups: int = 1):
+    """Kernel launches per image that the design implies: the copies warp
+    (two x passes, one y pass; the channels ride along as planes) once, and
+    per class group b = A^T y (the fused operator's three passes forward and
+    three backward) when "aug" is served, and one inverse warp (three passes)
+    when "max" or "mean" is. The K classes of a group ride the kernels'
+    channel axis, so K does not count; groups = ceil(K / class_chunk), 1
+    when unchunked. The stencil is given, so no probe launches."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.fused_operator import (
         OPERATOR_LAUNCHES)
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
         WARP_LAUNCHES)
+
+    out = {}
+    for name in KERNELS:
+        per_group = 2 * OPERATOR_LAUNCHES[name] if "aug" in sr_types else 0
+        if "max" in sr_types or "mean" in sr_types:
+            per_group += WARP_LAUNCHES[name]
+        out[name] = WARP_LAUNCHES[name] + groups * per_group
+    return out
+
+
+def most_frequent_class(model, image, device) -> int:
+    with torch.no_grad():
+        labels = model(torch.as_tensor(image, device=device)[None]).argmax(-1)
+    return int(torch.bincount(labels.flatten(), minlength=21).argmax())
+
+
+def serve_path(label, device, images, model, sr_cfg, coeffs, expected, **kw):
+    """One serving path as a user runs it: no timer, so nothing inside an
+    image waits for the card and the host enqueues ahead of it. The launch
+    counts are set to 0 just before and read just after; peak memory is
+    this path's own."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import serve
+
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for counter in counters.values():
+        counter.launches = 0
+    summary = serve(images, model, sr_cfg, device=device, gram_coeffs=coeffs,
+                    writer_threads=2, **kw)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    n_images = len(images)
+    log(f"[{label}] {summary['n_images']} images, first {summary['first_image_s']:.3f}s, "
+        f"steady {summary['steady_s_per_image']:.3f} s/image, wall "
+        f"{summary['wall_s']:.2f}s, peak memory {peak / 2**30:.2f} GiB")
+    fractions = summary["mask_fractions"].values()
+    mean_fraction = {key: round(float(np.mean([fr[key] for fr in fractions])), 4)
+                     for key in next(iter(fractions))}
+    log(f"[{label}] mask fractions, mean over the images (nonzero ones): "
+        + json.dumps({k: v for k, v in mean_fraction.items() if v > 0}))
+    log(f"[{label}] kernel launches {json.dumps(launches)} over {n_images} images, "
+        f"expected per image {json.dumps(expected)}")
+    if summary["n_images"] != n_images or len(summary["mask_fractions"]) != n_images:
+        raise AssertionError(f"[{label}] not every image was served")
+    for name, count in launches.items():
+        if count <= 0 or count != expected[name] * n_images:
+            raise AssertionError(f"[{label}] {count} {name} launches, expected "
+                                 f"{expected[name] * n_images}")
+    for name, fr in summary["mask_fractions"].items():
+        if not all(0.0 <= v <= 1.0 for v in fr.values()):
+            raise AssertionError(f"[{label}] mask fractions out of range for {name}")
+    return {"launches": launches, "n_images": n_images, "peak_bytes": peak,
+            "first_image_s": summary["first_image_s"],
+            "steady_s_per_image": summary["steady_s_per_image"]}
+
+
+def profile_path(label, device, images, model, sr_cfg, coeffs, **kw):
+    """A synchronised per-stage profile of a serving path: each stage is
+    bracketed by torch.cuda.synchronize, so host and card no longer overlap;
+    each stage's time is its cost alone, and their sum exceeds the
+    unsynchronised seconds per image."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import serve
     from deeplabv3plus_augmented_superresolution_tpu_torch.utils import StageTimer
+
+    timer = StageTimer(sync_device=device)
+    profile = serve(images, model, sr_cfg, device=device, gram_coeffs=coeffs,
+                    writer_threads=2, timer=timer, **kw)
+    log(f"[{label}-profile] synchronised stages, {profile['n_images']} images, "
+        f"steady {profile['steady_s_per_image']:.3f} s/image")
+    for stage, d in profile["stages"].items():
+        log(f"[{label}-profile] stage {stage}: {d['ms_per_call']:.2f} ms/call"
+            f" (steady {d.get('steady_ms_per_call', float('nan')):.2f}) x{d['calls']}")
+
+
+def phase_serve(device, images, coeffs, sr_cfg):
+    """Xception OS16, one class, aug: the CLI's default path, then a
+    synchronised per-stage profile of its first images."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+        build_deeplab)
 
     t0 = time.perf_counter()
     model = build_deeplab("xception", device=device)
     log(f"[serve] model built in {time.perf_counter() - t0:.1f}s "
         f"({sum(b.numel() for b in model.buffers()) / 1e6:.1f}M values)")
-    images = make_images(seed, n_images)
-    with torch.no_grad():
-        labels = model(torch.as_tensor(images[0][1], device=device)[None]).argmax(-1)
-    class_id = int(torch.bincount(labels.flatten(), minlength=21).argmax())
-
-    # Per image: the copies warp (two x passes, one y pass; the channels ride
-    # along as planes) and b = A^T y (the fused operator's three passes
-    # forward, three backward). The stencil is given, so no probe launches.
-    expected = {name: WARP_LAUNCHES[name] + 2 * OPERATOR_LAUNCHES[name]
-                for name in KERNELS}
-    counters = launch_counters()
-    # The main path as a user runs it: no timer, so nothing inside an image
-    # waits for the card and the host enqueues ahead of it. This run gives
-    # the end-to-end seconds per image and the launch counts.
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    for counter in counters.values():
-        counter.launches = 0
-    summary = serve(images, model, sr_cfg, device=device, class_id=class_id,
-                    gram_coeffs=coeffs, writer_threads=2)
-    launches = {name: counter.launches for name, counter in counters.items()}
-    peak = torch.cuda.max_memory_allocated(device)
-    log(f"[serve] class {class_id}; {summary['n_images']} images, first "
-        f"{summary['first_image_s']:.3f}s, steady {summary['steady_s_per_image']:.3f}"
-        f" s/image, wall {summary['wall_s']:.2f}s, peak memory {peak / 2**30:.2f} GiB")
-
-    # A synchronised profile on the first images: each stage is bracketed by
-    # torch.cuda.synchronize, so host and card no longer overlap; each stage's
-    # time is its cost alone, and their sum exceeds the end-to-end time above.
-    timer = StageTimer(sync_device=device)
-    profile = serve(images[:PROFILE_IMAGES], model, sr_cfg, device=device,
-                    class_id=class_id, gram_coeffs=coeffs, writer_threads=2,
-                    timer=timer)
-    log(f"[serve-profile] synchronised stages, {profile['n_images']} images, "
-        f"steady {profile['steady_s_per_image']:.3f} s/image")
-    for stage, d in profile["stages"].items():
-        log(f"[serve-profile] stage {stage}: {d['ms_per_call']:.2f} ms/call"
-            f" (steady {d.get('steady_ms_per_call', float('nan')):.2f}) x{d['calls']}")
-    log(f"[serve] mask fractions {json.dumps(summary['mask_fractions'])}")
-    log(f"[serve] kernel launches {json.dumps(launches)} over {n_images} images, "
-        f"expected per image {json.dumps(expected)}")
-    if summary["n_images"] != n_images or len(summary["mask_fractions"]) != n_images:
-        raise AssertionError("[serve] not every image was served")
-    for name, count in launches.items():
-        if count <= 0 or count != expected[name] * n_images:
-            raise AssertionError(f"[serve] {count} {name} launches, expected "
-                                 f"{expected[name] * n_images}")
+    class_id = most_frequent_class(model, images[0][1], device)
+    expected = expected_launches(("aug",))
     if expected != {"shear_rows": 6, "shear_cols": 3}:
         raise AssertionError(f"[serve] the per-image split moved: {expected}")
-    for name, fr in summary["mask_fractions"].items():
-        if not all(0.0 <= v <= 1.0 for v in fr.values()):
-            raise AssertionError(f"[serve] mask fractions out of range for {name}")
-    return launches, summary, peak, class_id, model, images
+    log(f"[serve] class {class_id}")
+    result = serve_path("serve", device, images, model, sr_cfg, coeffs, expected,
+                        class_id=class_id)
+
+    profile_path("serve", device, images[:PROFILE_IMAGES], model, sr_cfg, coeffs,
+                 class_id=class_id)
+    return result, class_id, model
+
+
+def phase_serve_multiclass(device, model, images, coeffs, sr_cfg, angles, shifts):
+    """Xception OS16, all 20 classes (run_asr --class_id all --label_map
+    --sr_types aug,max,mean), unchunked on every image, then in class groups
+    of CLASS_CHUNK on two, each with its peak memory; and the full-size
+    targets of one image are finite."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+        parse_class_ids)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+        asr_step_multiclass)
+
+    class_ids = parse_class_ids("all")
+    sr_types = ("aug", "max", "mean")
+    kw = dict(class_id=class_ids, sr_types=sr_types, label_map=True)
+    unchunked = serve_path("serve-20-classes", device, images, model, sr_cfg, coeffs,
+                           expected_launches(sr_types), **kw)
+    profile_path("serve-20-classes", device, images[:2], model, sr_cfg, coeffs, **kw)
+    groups = -(-len(class_ids) // CLASS_CHUNK)
+    chunked = serve_path(f"serve-20-classes-chunk-{CLASS_CHUNK}", device, images[:2],
+                         model, sr_cfg, coeffs, expected_launches(sr_types, groups),
+                         class_chunk=CLASS_CHUNK, **kw)
+    out = asr_step_multiclass(model, torch.as_tensor(images[0][1], device=device),
+                              angles, shifts, sr_cfg, class_ids, th_factor=0.2,
+                              sr_types=sr_types, gram_coeffs=coeffs,
+                              return_targets=True, return_label_map=True)
+    size = tuple(sr_cfg.output_size)
+    for key in ("aug_target", "max_target", "mean_target"):
+        if tuple(out[key].shape) != (20, *size, 1) or not bool(
+                torch.isfinite(out[key]).all()):
+            raise AssertionError(f"[serve-20-classes] {key} is not a finite "
+                                 f"(20, {size}, 1) stack")
+    labels = set(int(v) for v in torch.unique(out["label_map"]).tolist())
+    if tuple(out["label_map"].shape) != (*size, 1) or not labels <= {0, *class_ids}:
+        raise AssertionError(f"[serve-20-classes] label map labels {labels}")
+    log(f"[serve-20-classes] label map holds {sorted(labels)}; aug target range "
+        f"[{float(out['aug_target'].min()):.4f}, {float(out['aug_target'].max()):.4f}]")
+    return unchunked, chunked
+
+
+def phase_serve_mobilenet(device, images, coeffs, sr_cfg):
+    """MobileNetV2 OS8 (feature 64, its own stencil), one class, aug + max +
+    mean (run_asr --backbone mobilenet --sr_types aug,max,mean)."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+        build_deeplab)
+
+    model = build_deeplab("mobilenet", device=device)
+    class_id = most_frequent_class(model, images[0][1], device)
+    sr_types = ("aug", "max", "mean")
+    expected = expected_launches(sr_types)
+    if expected != {"shear_rows": 8, "shear_cols": 4}:
+        raise AssertionError(f"[serve-mobilenet] the per-image split moved: {expected}")
+    log(f"[serve-mobilenet] class {class_id}")
+    result = serve_path("serve-mobilenet", device, images, model, sr_cfg, coeffs,
+                        expected, class_id=class_id, sr_types=sr_types)
+    profile_path("serve-mobilenet", device, images[:2], model, sr_cfg, coeffs,
+                 class_id=class_id, sr_types=sr_types)
+    return result
 
 
 def check_target(model, device, image, class_id, coeffs, sr_cfg, angles, shifts):
@@ -491,8 +703,8 @@ def check_target(model, device, image, class_id, coeffs, sr_cfg, angles, shifts)
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
 
     out = asr_step(model, torch.as_tensor(image, device=device), angles, shifts,
-                   sr_cfg, class_id, th_factor=0.2, gram_coeffs=coeffs,
-                   return_targets=True)
+                   sr_cfg, class_id, th_factor=0.2, sr_types=("aug",),
+                   gram_coeffs=coeffs, return_targets=True)
     target = out["aug_target"]
     if tuple(target.shape) != (512, 512, 1) or not bool(torch.isfinite(target).all()):
         raise AssertionError("[serve] SR target is not a finite (512, 512, 1) map")
@@ -502,13 +714,16 @@ def check_target(model, device, image, class_id, coeffs, sr_cfg, angles, shifts)
 def main() -> None:
     parser = argparse.ArgumentParser(description="On-card smoke run of the port.")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--images", type=int, default=8)
+    parser.add_argument("--images", type=int, default=6,
+                        help="images of the one-class Xception serving path")
     parser.add_argument("--stage-trace", action="store_true",
                         help="also trace the warp and b stages with torch.profiler")
     parser.add_argument("--package-root", default="",
                         help="with --kernels-only: a directory that holds another "
                              "checkout's port package, whose kernels are timed "
-                             "instead (before and after in one call)")
+                             "instead (before and after in one call); that package "
+                             "must have both kernels and "
+                             "ops.shear_warp.paeth_coefficients / inverse_shifts")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel phase (for tuning): prints no "
                              "result line")
@@ -520,26 +735,41 @@ def main() -> None:
         sys.path.insert(0, args.package_root)
     # The port itself first: outside a checkout this fails before any output.
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
-        SEED, make_sr_config)
+        FEATURE_SIZES, SEED, make_sr_config)
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
         sample_augmentations)
 
     device = phase_device()
     t_start = time.perf_counter()
     phase_build()
-    sr_cfg = make_sr_config(None, num_aug=100, angle_max=0.15)
+    sr_cfg = make_sr_config(None, num_aug=100, feature_size=FEATURE_SIZES["xception"],
+                            angle_max=0.15)
+    mob_sr_cfg = make_sr_config(None, num_aug=100,
+                                feature_size=FEATURE_SIZES["mobilenet"], angle_max=0.15)
     angles, shifts = sample_augmentations(torch.Generator().manual_seed(SEED), 100,
                                           0.15, 80.0, device=device)
-    kernel_results = phase_kernel(device, angles, shifts)
     if args.kernels_only:
+        phase_kernel(device, angles, shifts)
         return
-    coeffs = phase_stencil(device, angles, shifts, sr_cfg)
-    phase_small_e2e(device)
-    launches, summary, peak, class_id, model, images = phase_serve(
-        device, args.seed, args.images, coeffs, sr_cfg)
+    coeffs = phase_stencil(device, angles, shifts, sr_cfg, "Xception")
+    mob_coeffs = phase_stencil(device, angles, shifts, mob_sr_cfg, "MobileNetV2")
+    # The serving paths come before the kernel cases and the CPU references,
+    # so that no earlier phase's load is on the card or the host when they run.
+    images = make_images(args.seed, max(args.images, MULTI_IMAGES, MOBILENET_IMAGES))
+    paths = {}
+    paths["serve"], class_id, model = phase_serve(device, images[:args.images],
+                                                  coeffs, sr_cfg)
     check_target(model, device, images[0][1], class_id, coeffs, sr_cfg, angles, shifts)
+    paths["serve-20-classes"], paths["serve-20-classes-chunked"] = phase_serve_multiclass(
+        device, model, images[:MULTI_IMAGES], coeffs, sr_cfg, angles, shifts)
     if args.stage_trace:
         phase_stage_trace(device, images, model, sr_cfg, class_id, coeffs)
+    del model
+    torch.cuda.empty_cache()
+    paths["serve-mobilenet"] = phase_serve_mobilenet(
+        device, images[:MOBILENET_IMAGES], mob_coeffs, mob_sr_cfg)
+    kernel_results = phase_kernel(device, angles, shifts)
+    phase_small_e2e(device)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     entries = []
@@ -548,12 +778,16 @@ def main() -> None:
         (main_case,) = [r for r in cases if r["primary"]]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES,
-            "launches": launches[name],
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches_by_path": {label: p["launches"][name] for label, p in paths.items()},
             "max_abs_err": max(max(r["fwd_err"], r["bwd_err"]) for r in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "ms_case": main_case["case"],
             "per_case": cases})
+    log("[done] serving paths " + json.dumps(
+        {label: {k: v for k, v in p.items() if k != "launches"}
+         for label, p in paths.items()}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

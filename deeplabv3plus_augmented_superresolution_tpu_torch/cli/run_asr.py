@@ -1,9 +1,11 @@
 """Fused end-to-end ASR serving over a directory / file list.
 
-Port of the JAX repository's ``cli/run_asr.py`` for its default path: one
-image per call, one fixed test-time-augmentation (TTA) set per run, the Gram
-stencil loaded from the cache or extracted once, then ``asr_step`` per image
-and a writer pool for PNGs and IoUs. The same flag names and defaults;
+Port of the JAX repository's ``cli/run_asr.py`` for its per-image programs:
+one fixed test-time-augmentation (TTA) set per run, the Gram stencil loaded
+from the cache or extracted once (when "aug" is among the SR types), then
+``asr_step`` (one class) or ``asr_step_multiclass`` (a class list or 'all',
+optionally with the full-scene label map) per image, and a writer pool for
+PNGs and IoUs. Xception or MobileNetV2. The same flag names and defaults;
 flags that select paths not ported yet raise a clear error.
 
   python -m deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr \\
@@ -20,19 +22,23 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..models import DeepLabConfig, build_model, default_weights_path
-from ..models.deeplab import DeepLab, NOT_PORTED_MOBILENET
-from ..pipeline import asr_step, sample_augmentations
+from ..models.deeplab import DeepLab
+from ..pipeline import asr_step, asr_step_multiclass, sample_augmentations
+from ..pipeline.end_to_end import SR_TYPES
 from ..sr import OptimizerConfig, SRConfig, load_stencil, precompute_gram_stencil, save_stencil
 
 SEED = 1234
 IMG_SIZE = (512, 512)
-FEATURE_SIZE = (128, 128)
+# The network's output size at 512 px: Xception OS16 + decoder is 1/4,
+# MobileNetV2 (OS8, no decoder) 1/8.
+FEATURE_SIZES = {"xception": (128, 128), "mobilenet": (64, 64)}
+FEATURE_SIZE = FEATURE_SIZES["xception"]
 DEFAULT_CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     ".dsr_cache")
@@ -49,8 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output_dir", type=str,
                         default=os.path.join(os.getcwd(), "asr_output"))
     parser.add_argument("--class_id", type=str, default="8",
-                        help="PASCAL class id (one class; lists and 'all' are "
-                             "not ported yet)")
+                        help="PASCAL class id, a comma list like '8,12,15', or "
+                             "'all' (classes 1-20); several classes share one "
+                             "forward and one Gram stencil")
     parser.add_argument("--mode", type=str, default="argmax",
                         choices=["slice_max", "slice", "argmax"])
     parser.add_argument("--backbone", type=str, default="xception",
@@ -60,9 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--shift_max", type=float, default=80)
     parser.add_argument("--th_factor", type=float, default=0.2)
     parser.add_argument("--sr_types", type=str, default="aug",
-                        help="comma list of SR types; the port runs 'aug'")
+                        help="comma list of aug,max,mean")
     parser.add_argument("--label_map", action="store_true",
-                        help="multi-class label map (not ported yet)")
+                        help="multi-class only: also emit <name>_labelmap.png "
+                             "(best class above threshold per pixel, from the "
+                             "per-class aug targets) and "
+                             "<name>_labelmap_standard.png, with mean-IoU "
+                             "scores when --gt_dir is given")
     parser.add_argument("--fast", action="store_true",
                         help="minibatched fast preset (not ported yet)")
     parser.add_argument("--per_image_augs", action="store_true",
@@ -77,7 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="run the model forward in copy chunks to cut the "
                              "activation peak (0 = single forward)")
     parser.add_argument("--class_chunk", type=int, default=0,
-                        help="multi-class class groups (not ported yet)")
+                        help="multi-class only: run the per-class solves and "
+                             "max/mean warps in class groups of this size to "
+                             "cut the memory peak (0 = all classes at once); "
+                             "results are identical")
     parser.add_argument("--writer_threads", type=int, default=4,
                         help="artifact-writer pool size (mask fetch + PNG "
                              "encode + IoU overlapped with device work; "
@@ -128,14 +142,6 @@ def _unported_flags(args) -> List[str]:
     solvers = "the direct and CG solvers, minibatching and dropout"
     checks = [
         (args.batch > 1, "--batch > 1", "the --batch path and the native staging ring"),
-        (args.class_id.strip().lower() == "all" or "," in args.class_id,
-         "several classes in --class_id", "multi-class and the label map"),
-        (args.label_map, "--label_map", "multi-class and the label map"),
-        (args.class_chunk != 0, "--class_chunk", "multi-class and the label map"),
-        ([t.strip() for t in args.sr_types.split(",") if t.strip()] != ["aug"],
-         f"--sr_types {args.sr_types}", "max/mean SR through the inverse warp"),
-        (args.backbone != "xception", "--backbone mobilenet",
-         "MobileNet and the decoder variants"),
         (args.solver_impl != "gram", f"--solver_impl {args.solver_impl}", solvers),
         (args.fast, "--fast", solvers),
         (args.sgd_copies > 0, "--sgd_copies", solvers),
@@ -149,15 +155,39 @@ def _unported_flags(args) -> List[str]:
     return [f"{flag} {NOT_PORTED.format(item)}" for bad, flag, item in checks if bad]
 
 
+def parse_class_ids(spec: str) -> Tuple[int, ...]:
+    """'8' -> (8,); '8,12' -> (8, 12); 'all' -> the 20 foreground classes."""
+    if spec.strip().lower() == "all":
+        return tuple(range(1, 21))
+    try:
+        ids = tuple(int(t) for t in spec.split(",") if t.strip())
+    except ValueError:
+        ids = ()
+    if not ids or any(not 0 <= c <= 20 for c in ids):
+        raise SystemExit(f"--class_id must name classes in 0..20, got {spec!r}")
+    return ids
+
+
+def parse_sr_types(spec: str) -> Tuple[str, ...]:
+    return tuple(t.strip() for t in spec.split(",") if t.strip())
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    """Parse and validate: flags outside the ported slice exit with an error."""
+    """Parse and validate: flags outside the ported slice exit with an error,
+    and so does --label_map without several classes and 'aug'."""
     parser = build_parser()
     args = parser.parse_args(argv)
     problems = _unported_flags(args)
     if problems:
         parser.error("; ".join(problems))
-    if not args.class_id.strip().isdigit() or not 0 <= int(args.class_id) <= 20:
-        parser.error(f"--class_id must name a class in 0..20, got {args.class_id!r}")
+    sr_types = parse_sr_types(args.sr_types)
+    if not sr_types or any(t not in SR_TYPES for t in sr_types):
+        parser.error(f"--sr_types must be a comma list of {','.join(SR_TYPES)}, "
+                     f"got {args.sr_types!r}")
+    class_ids = parse_class_ids(args.class_id)
+    if args.label_map and (len(class_ids) < 2 or "aug" not in sr_types):
+        raise SystemExit("--label_map needs a multi-class --class_id and "
+                         "'aug' in --sr_types")
     return args
 
 
@@ -196,10 +226,9 @@ def make_sr_config(args=None, num_aug: int = 100, feature_size=FEATURE_SIZE,
 
 def build_deeplab(backbone: str = "xception", weights_path: Optional[str] = None,
                   *, device) -> DeepLab:
-    """The serving model (Xception OS16, bf16, no final upsample), with the
-    bonlime checkpoint when a local .h5 exists, else random init (seed 0)."""
-    if backbone != "xception":
-        raise NotImplementedError(NOT_PORTED_MOBILENET)
+    """The serving model (Xception OS16 or MobileNetV2 OS8, bf16, no final
+    upsample), with the bonlime checkpoint when a local .h5 exists, else
+    random init (seed 0)."""
     cfg = DeepLabConfig(input_shape=IMG_SIZE + (3,), classes=21, os=16,
                         backbone=backbone, final_upsample=False,
                         compute_dtype="bfloat16")
@@ -255,30 +284,51 @@ def _stencil_for_run(angles, shifts, sr_cfg: SRConfig, cache_dir: str) -> torch.
 
 
 def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRConfig,
-          *, device, class_id: int = 8, mode: str = "argmax",
+          *, device, class_id: Union[int, Sequence[int]] = 8, mode: str = "argmax",
           th_factor: float = 0.2, angle_max: float = 0.15, shift_max: float = 80.0,
+          sr_types: Sequence[str] = ("aug",), label_map: bool = False,
+          class_chunk: int = 0,
           output_dir: Optional[str] = None,
           gt_dir: Optional[str] = None, cache_dir: str = "",
           gram_coeffs: Optional[torch.Tensor] = None, chunk_size: int = 0,
           writer_threads: int = 4, summary_json: str = "", timer=None) -> Dict:
     """Serve (name, (H, W, 3) float image in [0, 1]) pairs through ASR.
 
-    Per run: one TTA set drawn from SEED, the Gram stencil (given, from
-    the cache, or extracted once), then ``asr_step`` per image. The writer
-    pool fetches each result, writes ``{name}_aug.png`` and
-    ``{name}_standard.png`` under output_dir (when given) and scores IoU
-    against ``gt_dir/{name}.png`` (when present). Returns the run summary,
+    Per run: one TTA set drawn from SEED, the Gram stencil (given, from the
+    cache, or extracted once; only when "aug" is among sr_types), then per
+    image ``asr_step`` for one class or ``asr_step_multiclass`` for several
+    (class_id a sequence of more than one id; label_map adds the full-scene
+    label map). The writer pool fetches each result and, when output_dir is
+    given, writes ``{name}_{type}.png`` per SR type and "standard" (one
+    class) or ``{name}_{type}_c{id}.png`` per class, plus
+    ``{name}_labelmap.png`` and ``{name}_labelmap_standard.png``; it scores
+    IoU against ``gt_dir/{name}.png`` when present (series "<type>" or
+    "<type>/c<id>", and the label maps' mean IoU). Returns the run summary,
     also written to summary_json when given.
     """
     device = torch.device(device)
+    class_ids = (int(class_id),) if isinstance(class_id, int) else tuple(class_id)
+    multi = len(class_ids) > 1
+    sr_types = tuple(sr_types)
+    if label_map and (not multi or "aug" not in sr_types):
+        raise ValueError("label_map needs several classes and 'aug' in sr_types")
     generator = torch.Generator().manual_seed(SEED)
     angles, shifts = sample_augmentations(generator, sr_cfg.num_aug, angle_max,
                                           shift_max, device=device)
-    if gram_coeffs is None:
+    if gram_coeffs is None and "aug" in sr_types:
         gram_coeffs = _stencil_for_run(angles, shifts, sr_cfg, cache_dir)
 
-    out_keys = ("aug", "standard")
-    ious: Dict[str, List[float]] = {k: [] for k in out_keys}
+    out_keys = tuple(sorted(set(sr_types) | {"standard"}))
+    lm_keys = ("label_map", "label_map_standard") if label_map else ()
+    # One name per output plane, in the order of the packed result.
+    if multi:
+        names = [f"{k}_c{cid}" for k in out_keys for cid in class_ids] + \
+            [k.replace("label_map", "labelmap") for k in lm_keys]
+        series = [f"{k}/c{cid}" for k in out_keys for cid in class_ids]
+    else:
+        names = list(out_keys)
+        series = list(out_keys)
+    ious: Dict[str, List[float]] = {}
     fractions: Dict[str, Dict[str, float]] = {}
     done_ts: List[float] = []
     lock = threading.Lock()
@@ -289,23 +339,25 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
         masks = packed.cpu().numpy()  # waits for this image's device work
         if output_dir:
             from ..data.io import save_img
-            for j, k in enumerate(out_keys):
-                save_img(os.path.join(output_dir, f"{name}_{k}.png"), masks[j],
+            for j, key in enumerate(names):
+                save_img(os.path.join(output_dir, f"{name}_{key}.png"), masks[j],
                          scale=False, compress_level=1)
         scores = {}
         gt_path = os.path.join(gt_dir, f"{name}.png") if gt_dir else None
         if gt_path and os.path.exists(gt_path):
             from ..data.io import load_image
-            from ..metrics import compute_iou
+            from ..metrics import compute_iou, mean_iou
             gt = load_image(gt_path, image_size=masks.shape[1:3], normalize=False,
                             is_png=True, resize_method="nearest")
-            scores = {k: compute_iou(gt, masks[j], class_id=class_id)
-                      for j, k in enumerate(out_keys)}
+            scores = {key: compute_iou(gt, masks[j], class_id=class_ids[j % len(class_ids)])
+                      for j, key in enumerate(series)}
+            for j, key in enumerate(lm_keys, start=len(series)):
+                scores[f"{key} (mIoU)"] = mean_iou(gt, masks[j])
         with lock:
-            fractions[name] = {k: float((masks[j] > 0).mean())
-                               for j, k in enumerate(out_keys)}
-            for k, v in scores.items():
-                ious[k].append(v)
+            fractions[name] = {key: float((masks[j] > 0).mean())
+                               for j, key in enumerate(series + list(lm_keys))}
+            for key, v in scores.items():
+                ious.setdefault(key, []).append(v)
             done_ts.append(time.perf_counter())
 
     writer = ArtifactWriter(writer_threads) if writer_threads else None
@@ -314,10 +366,20 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
     try:
         for name, image in images:
             image_t = torch.as_tensor(np.asarray(image, np.float32)).to(device)
-            out = asr_step(model, image_t, angles, shifts, sr_cfg, class_id,
-                           mode=mode, th_factor=th_factor, chunk_size=chunk_size,
-                           gram_coeffs=gram_coeffs, timer=timer)
-            packed = torch.stack([out[k] for k in out_keys]).to(torch.uint8)
+            if multi:
+                out = asr_step_multiclass(
+                    model, image_t, angles, shifts, sr_cfg, class_ids, mode=mode,
+                    th_factor=th_factor, sr_types=sr_types, chunk_size=chunk_size,
+                    class_chunk=class_chunk, gram_coeffs=gram_coeffs,
+                    return_label_map=label_map, timer=timer)
+                planes = [out[k] for k in out_keys] + [out[k][None] for k in lm_keys]
+                packed = torch.cat(planes).to(torch.uint8)
+            else:
+                out = asr_step(model, image_t, angles, shifts, sr_cfg, class_ids[0],
+                               mode=mode, th_factor=th_factor, sr_types=sr_types,
+                               chunk_size=chunk_size, gram_coeffs=gram_coeffs,
+                               timer=timer)
+                packed = torch.stack([out[k] for k in out_keys]).to(torch.uint8)
             if writer:
                 writer.submit(emit, name, packed)
             else:
@@ -385,12 +447,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         raise SystemExit(f"No images matched {args.images}")
     device = torch.device(args.device)
     model = build_deeplab(args.backbone, args.weights_path, device=device)
-    sr_cfg = make_sr_config(args, num_aug=args.num_aug, feature_size=FEATURE_SIZE,
-                            angle_max=args.angle_max)
+    sr_cfg = make_sr_config(args, num_aug=args.num_aug,
+                            feature_size=FEATURE_SIZES[args.backbone],
+                            output_size=IMG_SIZE, angle_max=args.angle_max)
     summary = serve(_decoded(paths, args.prefetch), model, sr_cfg, device=device,
-                    class_id=int(args.class_id), mode=args.mode,
+                    class_id=parse_class_ids(args.class_id), mode=args.mode,
                     th_factor=args.th_factor, angle_max=args.angle_max,
-                    shift_max=args.shift_max, output_dir=args.output_dir,
+                    shift_max=args.shift_max, sr_types=parse_sr_types(args.sr_types),
+                    label_map=args.label_map, class_chunk=args.class_chunk,
+                    output_dir=args.output_dir,
                     gt_dir=args.gt_dir, cache_dir=args.cache_dir,
                     chunk_size=args.chunk_size, writer_threads=args.writer_threads,
                     summary_json=args.summary_json)

@@ -1,8 +1,10 @@
-"""DeepLabV3+ with the Xception backbone as an ``nn.Module``.
+"""DeepLabV3+ with the Xception or MobileNetV2 backbone as an ``nn.Module``.
 
 Port of the JAX package's ``models/deeplab.py``: the Xception backbone at
-OS 16 or 8 (entry / middle / exit flows), ASPP with the image-pooling branch,
-the standard decoder and the class head. Modules are registered in the order
+OS 16 or 8 (entry / middle / exit flows) or MobileNetV2 (OS forced to 8),
+ASPP with the image-pooling branch (only it and ``aspp0`` for MobileNetV2),
+the standard decoder or its only_DCNN / only_ASPP variants (Xception; none
+for MobileNetV2) and the class head. Modules are registered in the order
 the reference's forward creates its parameters, which ``models/weights.py``
 relies on to reproduce the reference's random init.
 
@@ -19,13 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_hw
-from .layers import (BatchNorm, Conv2d, KerasLayer, SepConvBN, Spec, conv2d_same,
-                     global_average_pool)
-
-NOT_PORTED_MOBILENET = ("the MobileNetV2 backbone is not ported yet "
-                        "(ROADMAP Queue 1: 'MobileNet and the decoder variants')")
-NOT_PORTED_DECODERS = ("the only_DCNN / only_ASPP decoder variants are not ported "
-                       "yet (ROADMAP Queue 1: 'MobileNet and the decoder variants')")
+from .layers import (BatchNorm, Conv2d, DepthwiseConv2d, KerasLayer, SepConvBN, Spec,
+                     conv2d_same, global_average_pool, make_divisible, relu6)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +148,79 @@ class XceptionBackbone(nn.Module):
         return x, skip
 
 
+class InvertedResBlock(nn.Module):
+    """MobileNetV2's expand (1x1) -> depthwise 3x3 -> project (1x1) block,
+    BN eps 1e-3, ReLU6, with an optional identity shortcut."""
+
+    def __init__(self, block_id: int, in_ch: int, filters: int, stride: int,
+                 rate: int, skip: bool, alpha: float, expansion: int = 6, *,
+                 dtype, device=None):
+        super().__init__()
+        prefix = f"expanded_conv_{block_id}_"
+        hidden = expansion * in_ch
+        self.out_ch = make_divisible(int(filters * alpha), 8)
+        self.skip = skip
+        kw = dict(dtype=dtype, device=device)
+        self.expand = Conv2d(prefix + "expand", in_ch, hidden, 1, **kw)
+        self.expand_bn = BatchNorm(prefix + "expand_BN", hidden, device=device)
+        self.depthwise = DepthwiseConv2d(prefix + "depthwise", hidden, 3, stride, rate,
+                                         "SAME", **kw)
+        self.depthwise_bn = BatchNorm(prefix + "depthwise_BN", hidden, device=device)
+        self.project = Conv2d(prefix + "project", hidden, self.out_ch, 1, **kw)
+        self.project_bn = BatchNorm(prefix + "project_BN", self.out_ch, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = relu6(self.expand_bn(self.expand(x)))
+        y = relu6(self.depthwise_bn(self.depthwise(y)))
+        y = self.project_bn(self.project(y))
+        return x + y if self.skip else y
+
+
+# (filters, stride, rate, skip) of blocks 1-16, reference model.py:339-379.
+MOBILENET_BLOCKS = (
+    (24, 2, 1, False), (24, 1, 1, True),
+    (32, 2, 1, False), (32, 1, 1, True), (32, 1, 1, True),
+    (64, 1, 1, False), (64, 1, 2, True), (64, 1, 2, True), (64, 1, 2, True),
+    (96, 1, 2, False), (96, 1, 2, True), (96, 1, 2, True),
+    (160, 1, 2, False), (160, 1, 4, True), (160, 1, 4, True),
+    (320, 1, 4, False),
+)
+
+
+class MobileNetBackbone(nn.Module):
+    """MobileNetV2 at output stride 8 (atrous rates after the third stride)."""
+
+    def __init__(self, cfg: DeepLabConfig, *, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        first = make_divisible(32 * cfg.alpha, 8)
+        in_ch = cfg.input_shape[2]
+        # TF "SAME" padding on stride 2: (0, 1) on an even input.
+        self.conv = Conv2d("Conv" if in_ch == 3 else "Conv_", in_ch, first, 3,
+                           stride=2, **kw)
+        self.conv_bn = BatchNorm("Conv_BN", first, device=device)
+        self.depthwise = DepthwiseConv2d("expanded_conv_depthwise", first, 3, **kw)
+        self.depthwise_bn = BatchNorm("expanded_conv_depthwise_BN", first, device=device)
+        ch = make_divisible(int(16 * cfg.alpha), 8)
+        self.project = Conv2d("expanded_conv_project", first, ch, 1, **kw)
+        self.project_bn = BatchNorm("expanded_conv_project_BN", ch, device=device)
+        blocks = []
+        for block_id, (filters, stride, rate, skip) in enumerate(MOBILENET_BLOCKS, start=1):
+            blocks.append(InvertedResBlock(block_id, ch, filters, stride, rate, skip,
+                                           cfg.alpha, **kw))
+            ch = blocks[-1].out_ch
+        self.blocks = nn.ModuleList(blocks)
+        self.out_ch = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = relu6(self.conv_bn(self.conv(x)))
+        x = relu6(self.depthwise_bn(self.depthwise(x)))
+        x = self.project_bn(self.project(x))
+        for block in self.blocks:
+            x = block(x)
+        return x
+
+
 class ASPP(nn.Module):
     def __init__(self, cfg: DeepLabConfig, in_ch: int, *, device=None):
         super().__init__()
@@ -159,9 +229,11 @@ class ASPP(nn.Module):
         self.pool_bn = BatchNorm("image_pooling_BN", 256, 1e-5, device=device)
         self.aspp0 = Conv2d("aspp0", in_ch, 256, 1, **kw)
         self.aspp0_bn = BatchNorm("aspp0_BN", 256, 1e-5, device=device)
+        # MobileNetV2's ASPP has only the pooling and aspp0 branches.
+        rates = cfg.xception_rates[3] if cfg.backbone == "xception" else ()
         self.atrous = nn.ModuleList([
             SepConvBN(f"aspp{i}", in_ch, 256, rate=rate, depth_activation=True, **kw)
-            for i, rate in enumerate(cfg.xception_rates[3], start=1)])
+            for i, rate in enumerate(rates, start=1)])
         self.projection = Conv2d("concat_projection", 256 * (2 + len(self.atrous)),
                                  256, 1, **kw)
         self.projection_bn = BatchNorm("concat_projection_BN", 256, 1e-5,
@@ -177,37 +249,59 @@ class ASPP(nn.Module):
 
 
 class Decoder(nn.Module):
+    """The standard decoder (upsampled ASPP output + projected skip), or a
+    variant: only_DCNN (the projected backbone output alone) or only_ASPP
+    (the ASPP output alone), both upsampled to cfg.first_upsample_size."""
+
     def __init__(self, cfg: DeepLabConfig, in_ch: int, skip_ch: int, *, device=None):
         super().__init__()
         kw = dict(dtype=cfg.dtype, device=device)
-        self.projection = Conv2d("feature_projection0", skip_ch, 48, 1, **kw)
-        self.projection_bn = BatchNorm("feature_projection0_BN", 48, 1e-5,
-                                       device=device)
-        self.conv0 = SepConvBN("decoder_conv0", in_ch + 48, 256,
+        self.variant = ("only_dcnn" if cfg.only_dcnn_output else
+                        "only_aspp" if cfg.only_aspp_output else "standard")
+        self.upsample_size = cfg.first_upsample_size
+        if self.variant != "only_aspp":
+            self.projection = Conv2d("feature_projection0", skip_ch, 48, 1, **kw)
+            self.projection_bn = BatchNorm("feature_projection0_BN", 48, 1e-5,
+                                           device=device)
+        conv0_in = {"standard": in_ch + 48, "only_dcnn": 48, "only_aspp": in_ch}
+        self.conv0 = SepConvBN("decoder_conv0", conv0_in[self.variant], 256,
                                depth_activation=True, epsilon=1e-5, **kw)
         self.conv1 = SepConvBN("decoder_conv1", 256, 256, depth_activation=True,
                                epsilon=1e-5, **kw)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = resize_hw(x, skip.shape[-2:], "bilinear").to(skip.dtype)
-        dec_skip = F.relu(self.projection_bn(self.projection(skip)))
-        return self.conv1(self.conv0(torch.cat([x, dec_skip], dim=1)))
+        """x: the ASPP output (standard, only_ASPP) or the backbone output
+        (only_DCNN); skip: the low-level features (standard only)."""
+        if self.variant == "standard":
+            x = resize_hw(x, skip.shape[-2:], "bilinear").to(skip.dtype)
+            dec_skip = F.relu(self.projection_bn(self.projection(skip)))
+            x = torch.cat([x, dec_skip], dim=1)
+        else:
+            if self.variant == "only_dcnn":
+                x = F.relu(self.projection_bn(self.projection(x)))
+            x = resize_hw(x, self.upsample_size, "bilinear").to(x.dtype)
+        return self.conv1(self.conv0(x))
 
 
 class DeepLab(nn.Module):
-    """DeepLabV3+ (Xception). ``forward``: (B, H, W, 3) -> (B, h, w, classes)
-    float32 logits, h = H / 4 without the final upsample."""
+    """DeepLabV3+ (Xception or MobileNetV2). ``forward``: (B, H, W, 3) ->
+    (B, h, w, classes) float32 logits; without the final upsample h = H / 4
+    (Xception, standard decoder), H / 8 (MobileNetV2) or the decoder
+    variants' first_upsample_size."""
 
     def __init__(self, cfg: DeepLabConfig, *, device=None):
         super().__init__()
-        if cfg.backbone != "xception":
-            raise NotImplementedError(NOT_PORTED_MOBILENET)
-        if cfg.only_dcnn_output or cfg.only_aspp_output:
-            raise NotImplementedError(NOT_PORTED_DECODERS)
         self.cfg = cfg
-        self.backbone = XceptionBackbone(cfg, device=device)
-        self.aspp = ASPP(cfg, 2048, device=device)
-        self.decoder = Decoder(cfg, 256, 256, device=device)
+        self.decoder = None
+        if cfg.backbone == "xception":
+            self.backbone = XceptionBackbone(cfg, device=device)
+            self.aspp = ASPP(cfg, 2048, device=device)
+            self.decoder = Decoder(cfg, 256, 2048 if cfg.only_dcnn_output else 256,
+                                   device=device)
+        else:
+            self.backbone = MobileNetBackbone(cfg, device=device)
+            # No decoder: the ASPP output feeds the head.
+            self.aspp = ASPP(cfg, self.backbone.out_ch, device=device)
         self.head = None
         if cfg.final_class_prediction:
             self.head = Conv2d(head_layer_name(cfg), 256, cfg.classes, 1,
@@ -236,8 +330,14 @@ class DeepLab(nn.Module):
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = image.to(cfg.dtype).permute(0, 3, 1, 2)
-        encoder_out, skip = self.backbone(x)
-        out = self.decoder(self.aspp(encoder_out), skip)
+        if self.decoder is None:
+            out = self.aspp(self.backbone(x))
+        else:
+            encoder_out, skip = self.backbone(x)
+            if self.decoder.variant == "only_dcnn":  # the ASPP output is unused
+                out = self.decoder(encoder_out, None)
+            else:
+                out = self.decoder(self.aspp(encoder_out), skip)
         if self.head is not None:
             out = self.head(out)
         out = out.float()

@@ -11,7 +11,7 @@ returns that dtype; BatchNorm is inference-only, folded to an f32
 scale/shift applied in f32, then cast back (precision-sensitive under bf16).
 """
 
-from typing import Dict, Iterator, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +32,9 @@ def manual_same_padding(kernel_size: int, rate: int) -> Tuple[int, int]:
 
 
 def _tf_same(size: int, effective: int, stride: int) -> Tuple[int, int]:
-    """TF 'SAME' padding of one axis: extra padding goes after."""
+    """TF 'SAME' padding of one axis: extra padding goes after (a stride-2
+    3x3 conv on an even size pads (0, 1), where a symmetric padding=1 would
+    shift every output by one pixel)."""
     out = -(-size // stride)
     total = max((out - 1) * stride + effective - size, 0)
     return total // 2, total - total // 2
@@ -214,3 +216,18 @@ def conv2d_same(name: str, in_ch: int, filters: int, stride: int = 1,
 def global_average_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over H, W in f32, kept as (N, C, 1, 1) in the input dtype."""
     return x.float().mean(dim=(-2, -1), keepdim=True).to(x.dtype)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0, 6)
+
+
+def make_divisible(value: float, divisor: int, min_value: Optional[int] = None) -> int:
+    """MobileNetV2's channel rounding: the nearest multiple of divisor, not
+    below min_value (default divisor) nor below 90% of value."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(value + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * value:
+        new_v += divisor
+    return new_v

@@ -3,8 +3,8 @@
 Port of the JAX package's ``ops/fused_operator.py``: the decimations are
 folded into the shear chain, so the later passes work on fewer rows.
 
-  pass A: x-shear at full resolution; every copy reads the one target
-          plane (a stride-0 batch), so no expanded batch is written.
+  pass A: x-shear at full resolution; every copy reads the target planes
+          (a stride-0 batch), so no expanded batch is written.
   pass B: y-shear (the column kernel, no transposes), then the
           y-decimation: 128 rows per copy at 512 -> 128.
   pass C: x-shear at the decimated y coordinates, then the x-decimation.
@@ -21,11 +21,26 @@ from typing import Tuple
 import torch
 
 from .resize import resize_matrix
-from .shear_warp import pass_shifts, shear_cols_dispatch, shear_rows_dispatch
+from .shear_warp import (paeth_coefficients, pass_shifts, shear_cols_dispatch,
+                         shear_rows_dispatch)
 
-# Kernel launches of one application of the operator (passes A, B, C); its
-# adjoint through autograd launches the same again.
+# Kernel launches of one application of the operator (passes A, B, C), for
+# one target plane or K; its adjoint through autograd launches the same again.
 OPERATOR_LAUNCHES = {"shear_rows": 2, "shear_cols": 1}
+
+
+def _target_planes(target: torch.Tensor) -> torch.Tensor:
+    """(H, W), (K, H, W) or (1, H, W, K) -> contiguous (K, H, W) planes (a
+    no-op for (H, W), (1, H, W, 1) and (K, H, W) unless the caller's tensor
+    is a strided view)."""
+    if target.dim() == 2:
+        return target[None].contiguous()
+    if target.dim() == 3:
+        return target.contiguous()
+    if target.dim() == 4 and target.shape[0] == 1:
+        return target[0].permute(2, 0, 1).contiguous()
+    raise ValueError("target must be (H, W), (K, H, W) or (1, H, W, K), got "
+                     f"shape {tuple(target.shape)}")
 
 
 def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
@@ -35,14 +50,16 @@ def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
     """A_i(x): rotate+translate (tfa convention) then TF-bilinear downsample,
     per copy, with the decimations fused into the shear chain.
 
-    target: (1, H, W, 1) or (H, W) float32; angles (N,); shifts (N, 2).
-    Returns (N, h, w, 1). angle_max is accepted for parity with the
-    reference and bounds nothing here.
+    target: one plane, (H, W) or (1, H, W, 1), or K planes, (K, H, W) or
+    (1, H, W, K), float32; angles (N,); shifts (N, 2). Returns (N, h, w, K)
+    (K = 1 for one plane): copy i of every plane is warped by (angles[i],
+    shifts[i]). The K planes ride the kernels' channel axis, so K adds no
+    launches. angle_max is accepted for parity with the reference and bounds
+    nothing here.
     """
     del angle_max
-    # One plane; a no-op unless the caller's target is a strided view.
-    img = (target if target.dim() == 2 else target[0, :, :, 0]).contiguous()
-    h, w = img.shape
+    img = _target_planes(target)                                   # (K, H, W)
+    k, h, w = img.shape
     hl, wl = feature_size
     if hl > h or wl > w:
         raise ValueError("fused operator is a downsampling operator")
@@ -50,27 +67,15 @@ def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
     cx = (w - 1) / 2.0
     cy = (h - 1) / 2.0
     device = img.device
+    a, off_a, b, off_b, off_c = paeth_coefficients(angles, shifts, h, w)
 
-    angles = angles.to(torch.float32)
-    dx = shifts[:, 0].to(torch.float32)
-    dy = shifts[:, 1].to(torch.float32)
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    a = -torch.tan(angles / 2.0)
-    b = sin
-
-    tx = cos * (-dx) - sin * (-dy) + (cx - (cos * cx - sin * cy))
-    ty = sin * (-dx) + cos * (-dy) + (cy - (sin * cx + cos * cy))
-    off_a = tx - a * ty + a * cy      # pass A x offset (coef a on y - cy)
-    off_b = ty + b * cx               # pass B y offset (coef b on x - cx)
-    off_c = a * cy                    # pass C x offset (coef a on y - cy)
-
-    # ---- pass A: x-shear at full resolution, one plane read by all copies ----
-    i1 = shear_rows_dispatch(img[None].expand(n, h, w),
-                             pass_shifts(a, off_a, cy, h))          # (N, H, W)
+    # ---- pass A: x-shear at full resolution, the planes read by all copies ----
+    i1 = shear_rows_dispatch(img[None].expand(n, k, h, w),
+                             pass_shifts(a, off_a, cy, h))          # (N, K, H, W)
 
     # ---- pass B: y-shear, then the y-decimation from the left ----
     i1 = shear_cols_dispatch(i1, pass_shifts(b, off_b, cx, w))
-    i2 = torch.matmul(resize_matrix(hl, h, "bilinear", device=device), i1)  # (N, hl, W)
+    i2 = torch.matmul(resize_matrix(hl, h, "bilinear", device=device), i1)  # (N, K, hl, W)
 
     # ---- pass C: x-shear + x-decimation, the shift evaluated at the
     # decimated y sample positions (TF half-pixel mapping) ----
@@ -80,4 +85,4 @@ def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
     s_c = a[:, None] * (yl_coords[None, :] - cy) + off_c[:, None]  # (N, hl)
     i3 = shear_rows_dispatch(i2, s_c)
     out = torch.matmul(i3, resize_matrix(wl, w, "bilinear", device=device).t())
-    return out[..., None]                                          # (N, hl, wl, 1)
+    return out.permute(0, 2, 3, 1)                                 # (N, hl, wl, K)

@@ -132,13 +132,14 @@ def stencil_weights(coeffs: torch.Tensor) -> torch.Tensor:
 def apply_gram(x: torch.Tensor, coeffs: torch.Tensor,
                radius_y: int = RADIUS_Y, radius_x: int = RADIUS_X,
                weights: torch.Tensor = None) -> torch.Tensor:
-    """(G x) for x (1, H, W, 1): sum over delta of c_delta[u] * x[u - delta].
+    """(G x) for x (K, H, W, 1), K = 1 or one plane per class: sum over delta
+    of c_delta[u] * x[u - delta], the one stencil applied to every plane.
 
     weights: ``stencil_weights(coeffs)``, for callers that apply one stencil
     many times (computed here when absent)."""
     if weights is None:
         weights = stencil_weights(coeffs)
-    img = x[0, :, :, 0]
+    img = x[..., 0]
     padded = torch.nn.functional.pad(img, (radius_x, radius_x, radius_y, radius_y))
-    windows = padded.unfold(0, 2 * radius_y + 1, 1).unfold(1, 2 * radius_x + 1, 1)
-    return (windows * weights).sum(dim=(-2, -1))[None, :, :, None]
+    windows = padded.unfold(1, 2 * radius_y + 1, 1).unfold(2, 2 * radius_x + 1, 1)
+    return (windows * weights).sum(dim=(-2, -1))[..., None]

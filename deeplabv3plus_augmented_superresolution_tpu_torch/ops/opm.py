@@ -1,6 +1,8 @@
 """Output Processing Modes (OPMs): per-copy LR mask extraction.
 
-Port of the JAX package's ``ops/opm.py`` (single class):
+Port of the JAX package's ``ops/opm.py``, for one class
+(``extract_masks``) or K classes from one prediction stack
+(``extract_masks_multiclass``):
 
   argmax:    argmax over classes, keep pixels == class_id (value class_id)
   slice:     class-channel slice min-max normalized to [0,1] by the whole
@@ -52,14 +54,48 @@ def extract_masks(predictions: torch.Tensor, class_id: int, mode: str = "argmax"
     return class_masks, max_masks
 
 
+def extract_masks_multiclass(predictions: torch.Tensor, class_ids, mode: str = "argmax"
+                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(N, h, w, C) logits + K class ids -> ((K, N, h, w, 1) class masks,
+    (K, N, h, w, 1) max masks or None). The class-independent work (the
+    argmax labels, the per-copy min/max, the top two logits) is done once;
+    slice k equals ``extract_masks(predictions, class_ids[k], mode)``
+    exactly."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    cls = torch.as_tensor(class_ids, dtype=torch.int64, device=predictions.device)
+    per_class = cls[:, None, None, None, None]                     # (K, 1, 1, 1, 1)
+
+    if mode == "argmax":
+        labels = torch.argmax(predictions, dim=-1, keepdim=True)[None]
+        return torch.where(labels == per_class, labels, 0).to(torch.float32), None
+
+    # (N, h, w, K) -> (K, N, h, w, 1)
+    class_masks = predictions[..., cls].to(torch.float32).permute(3, 0, 1, 2)[..., None]
+    if mode == "slice":
+        gmin = predictions.amin(dim=(-3, -2, -1), keepdim=True)
+        gmax = predictions.amax(dim=(-3, -2, -1), keepdim=True)
+        return min_max_normalization(class_masks, 0.0, 1.0,
+                                     global_min=gmin, global_max=gmax), None
+
+    # slice_max: the max over the other channels is the top logit unless the
+    # class itself holds it, then the second (equal to the top on a tie).
+    top2 = torch.topk(predictions, 2, dim=-1).values.to(torch.float32)
+    first, second = top2[..., :1][None], top2[..., 1:][None]
+    max_masks = torch.where(class_masks == first, second, first)
+    return class_masks, max_masks
+
+
 def normalize_stack(masks: torch.Tensor, global_normalize: bool = True) -> torch.Tensor:
     """[0,1] normalization of a mask stack: min/max over the whole stack when
-    global_normalize, else per copy."""
+    global_normalize, else per copy. A 5-D stack (K, N, h, w, 1) carries a
+    leading class axis, and each class is normalized on its own."""
     if global_normalize:
-        return min_max_normalization(masks, 0.0, 1.0,
-                                     global_min=masks.min(), global_max=masks.max())
-    mn = masks.amin(dim=(-3, -2, -1), keepdim=True)
-    mx = masks.amax(dim=(-3, -2, -1), keepdim=True)
+        dims = tuple(range(1 if masks.dim() == 5 else 0, masks.dim()))
+    else:
+        dims = (-3, -2, -1)
+    mn = masks.amin(dim=dims, keepdim=True)
+    mx = masks.amax(dim=dims, keepdim=True)
     return min_max_normalization(masks, 0.0, 1.0, global_min=mn, global_max=mx)
 
 
@@ -68,7 +104,9 @@ def prepare_sr_inputs(class_masks: torch.Tensor,
                       mode: str, global_normalize: bool = True
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """'slice' is normalized at extraction; other modes are normalized here;
-    slice_max also normalizes the max stack."""
+    slice_max also normalizes the max stack. Stacks with a leading class axis
+    (``extract_masks_multiclass``) are normalized per class, as the
+    reference's vmap over classes does."""
     if mode != "slice":
         class_masks = normalize_stack(class_masks, global_normalize)
     if mode == "slice_max" and max_masks is not None:

@@ -150,6 +150,42 @@ def shear_taps(angle_max: float, size: int) -> int:
     return int(math.ceil(coef * size)) + 3
 
 
+def paeth_coefficients(angles: torch.Tensor, shifts: torch.Tensor, h: int, w: int):
+    """(a, off_a, b, off_b, off_c) of the three passes of rotate(angles) then
+    translate(shifts) about the centre of an (h, w) plane."""
+    cx = (w - 1) / 2.0
+    cy = (h - 1) / 2.0
+    angles = angles.to(torch.float32)
+    dx = shifts[:, 0].to(torch.float32)
+    dy = shifts[:, 1].to(torch.float32)
+
+    cos = torch.cos(angles)
+    sin = torch.sin(angles)
+    a = -torch.tan(angles / 2.0)    # x-shear coefficient (both passes)
+    b = sin                          # y-shear coefficient
+
+    # Composite output -> input map of rotate-about-center then translate:
+    # p_in = R @ (p_out - d - c) + c, R = [[cos, -sin], [sin, cos]].
+    tx = cos * (-dx) - sin * (-dy) + (cx - (cos * cx - sin * cy))
+    ty = sin * (-dx) + cos * (-dy) + (cy - (sin * cx + cos * cy))
+    return a, tx - a * ty + a * cy, b, ty + b * cx, a * cy
+
+
+def paeth_planes(planes: torch.Tensor, angles: torch.Tensor, shifts: torch.Tensor,
+                 interpolation: str = "bilinear") -> torch.Tensor:
+    """The three shear passes on an (N, C, H, W) view whose (H, W) planes are
+    contiguous (any stride over N and C, 0 included): copy n's C planes share
+    its angle and shift. Returns a dense (N, C, H, W) tensor. Three kernel
+    launches on the card (``WARP_LAUNCHES``), whatever C is."""
+    h, w = planes.shape[-2:]
+    a, off_a, b, off_b, off_c = paeth_coefficients(angles, shifts, h, w)
+    cx = (w - 1) / 2.0
+    cy = (h - 1) / 2.0
+    out = shear_rows_dispatch(planes, pass_shifts(a, off_a, cy, h, interpolation))
+    out = shear_cols_dispatch(out, pass_shifts(b, off_b, cx, w, interpolation))
+    return shear_rows_dispatch(out, pass_shifts(a, off_c, cy, h, interpolation))
+
+
 def paeth_rotate_translate(images: torch.Tensor, angles: torch.Tensor,
                            shifts: torch.Tensor, angle_max: float = 0.35,
                            interpolation: str = "bilinear") -> torch.Tensor:
@@ -165,33 +201,21 @@ def paeth_rotate_translate(images: torch.Tensor, angles: torch.Tensor,
     squeeze = images.dim() == 3
     if squeeze:
         images = images[..., None]
-    h, w = images.shape[1:3]
-    cx = (w - 1) / 2.0
-    cy = (h - 1) / 2.0
-
-    angles = angles.to(torch.float32)
-    dx = shifts[:, 0].to(torch.float32)
-    dy = shifts[:, 1].to(torch.float32)
-
-    cos = torch.cos(angles)
-    sin = torch.sin(angles)
-    a = -torch.tan(angles / 2.0)    # x-shear coefficient (both passes)
-    b = sin                          # y-shear coefficient
-
-    # Composite output -> input map of rotate-about-center then translate:
-    # p_in = R @ (p_out - d - c) + c, R = [[cos, -sin], [sin, cos]].
-    tx = cos * (-dx) - sin * (-dy) + (cx - (cos * cx - sin * cy))
-    ty = sin * (-dx) + cos * (-dy) + (cy - (sin * cx + cos * cy))
-    off_a = tx - a * ty + a * cy
-    off_b = ty + b * cx
-    off_c = a * cy
-
-    out = shear_rows_dispatch(_to_planes(images),
-                              pass_shifts(a, off_a, cy, h, interpolation))
-    out = shear_cols_dispatch(out, pass_shifts(b, off_b, cx, w, interpolation))
-    out = shear_rows_dispatch(out, pass_shifts(a, off_c, cy, h, interpolation))
+    out = paeth_planes(_to_planes(images), angles, shifts, interpolation)
     out = out.permute(0, 2, 3, 1)
     return out[..., 0] if squeeze else out
+
+
+def inverse_shifts(angles: torch.Tensor, shifts: torch.Tensor):
+    """(angles, shifts) of the inverse warp: translate(-shifts) then
+    rotate(-angles) is rotate(-angles) then translate(-R(angles) shifts)."""
+    angles = angles.to(torch.float32)
+    shifts = shifts.to(torch.float32)
+    cos = torch.cos(angles)
+    sin = torch.sin(angles)
+    dx, dy = shifts[:, 0], shifts[:, 1]
+    rot_d = torch.stack([cos * dx - sin * dy, sin * dx + cos * dy], dim=-1)
+    return -angles, -rot_d
 
 
 def paeth_inverse_rotate_translate(images: torch.Tensor, angles: torch.Tensor,
@@ -199,11 +223,6 @@ def paeth_inverse_rotate_translate(images: torch.Tensor, angles: torch.Tensor,
                                    interpolation: str = "bilinear") -> torch.Tensor:
     """Inverse warp: translate(-shifts) then rotate(-angles), composed into one
     3-shear chain as rotate(-angles) then translate(-R(angles) shifts)."""
-    angles = angles.to(torch.float32)
-    shifts = shifts.to(torch.float32)
-    cos = torch.cos(angles)
-    sin = torch.sin(angles)
-    dx, dy = shifts[:, 0], shifts[:, 1]
-    rot_d = torch.stack([cos * dx - sin * dy, sin * dx + cos * dy], dim=-1)
-    return paeth_rotate_translate(images, -angles, -rot_d, angle_max,
+    inv_angles, inv_shifts = inverse_shifts(angles, shifts)
+    return paeth_rotate_translate(images, inv_angles, inv_shifts, angle_max,
                                   interpolation)

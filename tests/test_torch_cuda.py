@@ -27,9 +27,13 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
     shear_rows,
     shear_rows_dispatch,
 )
-from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
+from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+    asr_step,
+    asr_step_multiclass,
+)
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     SRConfig,
+    multiclass_max_mean_superresolution,
     precompute_gram_stencil,
 )
 
@@ -221,7 +225,7 @@ def test_asr_step_on_card_matches_cpu(cuda_device):
                    "shear_cols": shear_kernel.shear_cols_cuda}
         before = {name: k.launches for name, k in kernels.items()}
         out = asr_step(model, image.to(dev), a, sh, sr_cfg, class_id,
-                       gram_coeffs=coeffs, return_targets=True)
+                       sr_types=("aug",), gram_coeffs=coeffs, return_targets=True)
         if dev.type == "cuda":
             torch.cuda.synchronize()
             for name, k in kernels.items():
@@ -232,3 +236,90 @@ def test_asr_step_on_card_matches_cpu(cuda_device):
         assert float((outs["cpu"][key] == outs["cuda"][key]).float().mean()) >= 0.99
     err = (outs["cpu"]["aug_target"] - outs["cuda"]["aug_target"]).abs().max()
     assert float(err) <= 1e-2
+
+
+def _launches():
+    return {"shear_rows": shear_kernel.shear_rows_cuda.launches,
+            "shear_cols": shear_kernel.shear_cols_cuda.launches}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+def test_class_planes_on_card(cuda_device, axis):
+    """The multi-class layout: (N, K, H, W) as the transpose of a (K, N, H, W)
+    stack (stride H*W over the copies, N*H*W over the classes), one shift per
+    copy shared by its K planes. Bit for bit the kernel on the materialised
+    copy, and within 1e-5 of the plain version (f32)."""
+    kernel, _, plain = AXES[axis]
+    rng = np.random.default_rng(17)
+    stack = torch.from_numpy(rng.uniform(0, 1, (3, 4, 64, 128)).astype(np.float32))
+    view = stack.to(cuda_device).transpose(0, 1)                    # (N, K, H, W)
+    _, s = _axis_case(axis, n=4, h=64, w=128, seed=19)
+    st = s.to(cuda_device)
+    out = kernel(view, st)
+    assert bool((out == kernel(view.contiguous(), st)).all())
+    _assert_matches_plain(out, view.contiguous(), st, plain, torch.float32)
+
+
+@pytest.mark.requires_cuda
+def test_inverse_warp_on_card_matches_cpu(cuda_device):
+    """max/mean SR of K = 3 classes (the upsample 16 -> 64 and the inverse
+    warp of the (N, K, 64, 64) stack) on the card against the CPU: 1e-5; one
+    inverse warp, 2 shear_rows + 1 shear_cols launches, whatever K."""
+    rng = np.random.default_rng(23)
+    masks = torch.from_numpy(rng.uniform(0, 1, (3, 4, 16, 16, 1)).astype(np.float32))
+    angles = torch.from_numpy(rng.uniform(-0.15, 0.15, 4).astype(np.float32))
+    shifts = torch.from_numpy(rng.uniform(-8, 8, (4, 2)).astype(np.float32))
+    cfg = SRConfig(num_aug=4, feature_size=(16, 16), output_size=(64, 64),
+                   angle_max=0.15)
+    cpu = multiclass_max_mean_superresolution(masks, angles, shifts, cfg)
+    before = _launches()
+    card = multiclass_max_mean_superresolution(masks.to(cuda_device),
+                                               angles.to(cuda_device),
+                                               shifts.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _launches().items()} == WARP_LAUNCHES
+    for c, g in zip(cpu, card):
+        assert tuple(g.shape) == (3, 64, 64, 1)
+        assert float((c - g.cpu()).abs().max()) <= 1e-5
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("class_chunk", [0, 2])
+def test_asr_step_multiclass_launches_on_card(cuda_device, class_chunk):
+    """asr_step_multiclass of 3 classes with aug, max and mean on the card:
+    the copies warp once, then per class group one b (the operator forward
+    and its adjoint) and one inverse warp, so groups, not classes, count;
+    the masks equal the CPU's on >= 99% of pixels."""
+    cfg = DeepLabConfig(input_shape=(64, 64, 3), backbone="mobilenet",
+                        final_upsample=False)
+    sr_cfg = SRConfig(num_aug=4, feature_size=(8, 8), output_size=(64, 64),
+                      angle_max=0.15, num_iter=10, solver_impl="gram")
+    rng = np.random.default_rng(29)
+    image = torch.from_numpy(rng.uniform(0, 1, (64, 64, 3)).astype(np.float32))
+    angles = torch.from_numpy(rng.uniform(-0.15, 0.15, 4).astype(np.float32))
+    shifts = torch.from_numpy(rng.uniform(-8, 8, (4, 2)).astype(np.float32))
+    angles[0], shifts[0] = 0.0, 0.0
+    groups = 2 if class_chunk == 2 else 1
+    outs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        model = build_model(cfg, seed=0, device=dev)
+        if not outs:  # the 3 classes the random model predicts most
+            with torch.no_grad():
+                labels = model(image[None]).argmax(-1)
+            counts = torch.bincount(labels.flatten(), minlength=21)
+            class_ids = tuple(int(c) for c in counts.argsort(descending=True)[:3])
+        a, sh = angles.to(dev), shifts.to(dev)
+        coeffs = precompute_gram_stencil(a, sh, sr_cfg)
+        before = _launches()
+        out = asr_step_multiclass(model, image.to(dev), a, sh, sr_cfg, class_ids,
+                                  class_chunk=class_chunk, gram_coeffs=coeffs,
+                                  return_label_map=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name, count in _launches().items():
+                per_group = 2 * OPERATOR_LAUNCHES[name] + WARP_LAUNCHES[name]
+                assert count - before[name] == WARP_LAUNCHES[name] + groups * per_group
+        outs[dev.type] = {k: v.cpu() for k, v in out.items()}
+    for key in ("aug", "max", "mean", "standard", "label_map"):
+        assert float((outs["cpu"][key] == outs["cuda"][key]).float().mean()) >= 0.99

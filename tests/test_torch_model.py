@@ -1,12 +1,15 @@
-"""Port parity: DeepLabV3+ (Xception) parameters, layout conversion and logits.
+"""Port parity: DeepLabV3+ (Xception) parameters, layout conversion and
+logits, and the only_DCNN / only_ASPP decoder variants.
 
-One Keras-named param dict from the reference's init feeds both models.
+One Keras-named param dict from the reference's init feeds both models. The
+JAX forward runs jitted (one compile per configuration instead of one per op).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deeplabv3plus_augmented_superresolution_tpu.models import (
@@ -28,6 +31,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
 torch.set_num_threads(2)
 
 SMALL = dict(input_shape=(64, 64, 3), final_upsample=False)
+j_forward_jit = jax.jit(j_forward, static_argnames="cfg")
 
 
 @pytest.fixture(scope="module")
@@ -38,6 +42,39 @@ def jax_params():
 @pytest.fixture(scope="module")
 def image():
     return np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+
+
+VARIANTS = ("only_dcnn_output", "only_aspp_output")
+
+
+def _variant_cfg(variant):
+    return dict(SMALL, first_upsample_size=(24, 24), **{variant: True})
+
+
+@pytest.fixture(scope="module")
+def os16_refs(jax_params, image):
+    """The reference's OS16 logits of the full model and of both decoder
+    variants, in one jitted program: each variant takes jax_params, less
+    the layers it lacks, with its own init's layers where their shapes
+    differ (the decoder head), so the three share the backbone's inputs and
+    XLA compiles it once. Also each variant's own init (seed 1) and its
+    params."""
+    inits, heads = {}, {}
+    for variant in VARIANTS:
+        inits[variant] = j_init_params(JDeepLabConfig(**_variant_cfg(variant)), seed=1)
+        heads[variant] = {
+            layer: weights for layer, weights in inits[variant].items()
+            if layer not in jax_params or any(
+                np.shape(v) != np.shape(jax_params[layer].get(n))
+                for n, v in weights.items())}
+    cfgs = {"full": JDeepLabConfig(**SMALL),
+            **{v: JDeepLabConfig(**_variant_cfg(v)) for v in VARIANTS}}
+    logits = jax.jit(lambda p, h, x: {k: j_forward({**p, **h.get(k, {})}, x, c)
+                                      for k, c in cfgs.items()})(
+        jax_params, heads, jnp.asarray(image))
+    variant_params = {v: {layer: heads[v].get(layer, jax_params.get(layer))
+                          for layer in inits[v]} for v in VARIANTS}
+    return ({k: np.asarray(v) for k, v in logits.items()}, inits, variant_params)
 
 
 def test_init_params_equal_jax(jax_params):
@@ -66,11 +103,11 @@ def test_params_from_jax_layouts(jax_params):
 
 
 @pytest.mark.parametrize("os_", [16, 8])
-def test_xception_f32_logits_match_jax(jax_params, image, os_):
+def test_xception_f32_logits_match_jax(jax_params, image, os16_refs, os_):
     """Shared params, f32 on both sides: ~75 convolutions deep, the two
     frameworks' conv sums differ in order, 1e-4 of the logit scale."""
-    ref = np.asarray(j_forward(jax_params, jnp.asarray(image),
-                               JDeepLabConfig(**SMALL, os=os_)))
+    ref = os16_refs[0]["full"] if os_ == 16 else np.asarray(j_forward_jit(
+        jax_params, jnp.asarray(image), JDeepLabConfig(**SMALL, os=os_)))
     model = DeepLab(DeepLabConfig(**SMALL, os=os_), device="cpu").load_params(
         params_from_jax(jax_params)).eval()
     with torch.no_grad():
@@ -85,7 +122,8 @@ def test_xception_bf16_masks_agree_with_jax(jax_params, image):
     argmax labels agree on >= 90% of pixels of a random-init model (whose
     class margins are small), and the logits stay within 5% of their scale."""
     cfg = dict(SMALL, compute_dtype="bfloat16")
-    ref = np.asarray(j_forward(jax_params, jnp.asarray(image), JDeepLabConfig(**cfg)))
+    ref = np.asarray(j_forward_jit(jax_params, jnp.asarray(image),
+                                   JDeepLabConfig(**cfg)))
     model = build_model(DeepLabConfig(**cfg), params=jax_params, device="cpu")
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()
@@ -94,16 +132,19 @@ def test_xception_bf16_masks_agree_with_jax(jax_params, image):
     np.testing.assert_allclose(ours, ref, atol=0.05 * np.abs(ref).max())
 
 
-def test_npz_roundtrip_and_head_rename(jax_params, image, tmp_path):
+def test_npz_roundtrip_and_head_rename(image, tmp_path):
     """save_params_npz / build_model(weights_path=.npz) reproduce the model,
-    with the pascal_voc head loaded from a custom-named head."""
-    cfg = DeepLabConfig(**SMALL)
+    with the pascal_voc head loaded from a custom-named head. The file
+    format and the head rename do not depend on the backbone, so the small
+    MobileNetV2 stands in for Xception's 41M values."""
+    cfg = DeepLabConfig(**SMALL, backbone="mobilenet")
+    original = init_params(cfg, seed=3)
     params = {("custom_logits_semantic" if k == "logits_semantic" else k): v
-              for k, v in init_params(cfg, seed=3).items()}
+              for k, v in original.items()}
     path = str(tmp_path / "p.npz")
     save_params_npz(params, path)
     a = build_model(cfg, weights_path=path, device="cpu")
-    b = build_model(cfg, params=init_params(cfg, seed=3), device="cpu")
+    b = build_model(cfg, params=original, device="cpu")
     x = torch.from_numpy(image)
     with torch.no_grad():
         np.testing.assert_array_equal(a(x).numpy(), b(x).numpy())
@@ -143,8 +184,24 @@ def test_h5_loader_matches_jax(jax_params, tmp_path):
     np.testing.assert_array_equal(ours["entry_flow_conv1_1"]["kernel"], conv)
 
 
-def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="MobileNet"):
-        DeepLab(DeepLabConfig(**SMALL, backbone="mobilenet"), device="meta")
-    with pytest.raises(NotImplementedError, match="decoder variants"):
-        DeepLab(DeepLabConfig(**SMALL, only_aspp_output=True), device="meta")
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_unported_variants_raise(variant, image, os16_refs):
+    """The decoder variants, which raised before they were ported, build and
+    run as the reference does: init_params draws the reference's arrays for
+    the variant (its unused ASPP included), and the f32 logits (only_DCNN:
+    the projected backbone output, no ASPP; only_ASPP: the ASPP output; both
+    upsampled to first_upsample_size, then the head) match the reference's
+    forward on the same params and input, 1e-4 of the logit scale."""
+    refs, inits, variant_params = os16_refs
+    ours_params = init_params(DeepLabConfig(**_variant_cfg(variant)), seed=1)
+    assert set(ours_params) == set(inits[variant])
+    for layer, weights in inits[variant].items():
+        for name, value in weights.items():
+            np.testing.assert_array_equal(ours_params[layer][name], np.asarray(value))
+    model = DeepLab(DeepLabConfig(**_variant_cfg(variant)), device="cpu").load_params(
+        params_from_jax(variant_params[variant])).eval()
+    with torch.no_grad():
+        ours = model(torch.from_numpy(image)).numpy()
+    ref = refs[variant]
+    assert ours.shape == ref.shape == (2, 24, 24, 21)
+    np.testing.assert_allclose(ours, ref, atol=1e-4 * np.abs(ref).max())

@@ -133,7 +133,8 @@ def test_aliased_stencil_matches_jax():
             z, jnp.asarray(angles), jnp.asarray(shifts), jcfg.feature_size, jcfg), x)
         return vjp(out)[0]
 
-    ref = np.asarray(j_extract_aliased(j_normal_op, jcfg.output_size))
+    # jitted: one compile for the 35 probes and the disentangling
+    ref = np.asarray(jax.jit(lambda: j_extract_aliased(j_normal_op, jcfg.output_size))())
     ours = precompute_gram_stencil(*_t(angles, shifts), cfg).numpy()
     assert ours.shape == ref.shape == (7, 9, 64, 64)
     np.testing.assert_allclose(ours, ref, atol=1e-5 * np.abs(ref).max())

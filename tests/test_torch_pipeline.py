@@ -6,6 +6,7 @@ and the PyTorch port (plain versions on the CPU). The port's ``serve`` and
 only parsed here (too slow for a CPU test).
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -129,7 +130,7 @@ def test_asr_step_matches_jax(params, model):
     ours = asr_step(model, torch.from_numpy(image), torch.from_numpy(angles),
                     torch.from_numpy(shifts),
                     SRConfig(**kw, optimizer=OptimizerConfig(**SERVING_OPT)),
-                    class_id, th_factor=0.2, return_targets=True)
+                    class_id, th_factor=0.2, sr_types=("aug",), return_targets=True)
     assert set(ours) == {"aug", "aug_target", "standard"}
     for key in ("aug", "standard"):
         assert ours[key].shape == (64, 64, 1)
@@ -142,17 +143,32 @@ def test_asr_step_matches_jax(params, model):
 
 
 def test_asr_step_slice_max_and_unported_sr_types(model):
+    """max and mean SR, which raised before they were ported, through the
+    slice_max path (a second inverse-warp stack of the max masks sets each
+    threshold): (64, 64, 1) masks valued {0, 8}; targets in [0, 1] with
+    max >= mean; the max alone (its own inverse warp) equals the max of the
+    shared stack, targets and masks."""
     image = np.random.default_rng(5).uniform(0, 1, (64, 64, 3)).astype(np.float32)
     angles, shifts = (torch.from_numpy(a) for a in _tta(2, 6))
     cfg = SRConfig(num_aug=2, feature_size=(16, 16), output_size=(64, 64),
                    angle_max=0.15, num_iter=5, solver_impl="gram")
     out = asr_step(model, torch.from_numpy(image), angles, shifts, cfg, 8,
-                   mode="slice_max", chunk_size=1)
-    assert out["aug"].shape == (64, 64, 1)
-    assert set(np.unique(out["aug"].numpy())) <= {0.0, 8.0}
-    with pytest.raises(NotImplementedError, match="max/mean SR"):
+                   mode="slice_max", chunk_size=1, return_targets=True)
+    assert set(out) == {"aug", "max", "mean", "standard", "aug_target",
+                        "max_target", "mean_target"}
+    for key in ("aug", "max", "mean"):
+        assert out[key].shape == (64, 64, 1)
+        assert set(np.unique(out[key].numpy())) <= {0.0, 8.0}
+    mx, mean = out["max_target"], out["mean_target"]
+    assert float(mean.min()) >= 0.0 and float(mx.max()) <= 1.0 + 1e-6
+    assert bool((mx >= mean - 1e-6).all())
+    alone = asr_step(model, torch.from_numpy(image), angles, shifts, cfg, 8,
+                     mode="slice_max", chunk_size=1, sr_types=("max",),
+                     return_targets=True)
+    assert torch.equal(alone["max_target"], mx) and torch.equal(alone["max"], out["max"])
+    with pytest.raises(ValueError, match="sr_types"):
         asr_step(model, torch.from_numpy(image), angles, shifts, cfg, 8,
-                 sr_types=("aug", "max"))
+                 sr_types=("aug", "median"))
 
 
 def test_load_image_and_metrics_match_jax():
@@ -277,11 +293,9 @@ def test_cli_flags_and_defaults_match_jax_cli():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--batch", "4"], ["--class_id", "8,12"], ["--class_id", "all"],
-    ["--sr_types", "aug,max"], ["--backbone", "mobilenet"],
-    ["--solver_impl", "cg"], ["--per_image_augs"], ["--fast"],
+    ["--batch", "4"], ["--solver_impl", "cg"], ["--per_image_augs"], ["--fast"],
     ["--copy_dropout", "0.1"], ["--sgd_copies", "25"], ["--optimizer", "sgd"],
-    ["--warp_impl", "gather"], ["--operator_impl", "staged"], ["--label_map"],
+    ["--warp_impl", "gather"], ["--operator_impl", "staged"],
     ["--profile_dir", "x"],
 ], ids=lambda f: " ".join(f))
 def test_main_rejects_flags_outside_the_slice(flags, capsys):
@@ -289,3 +303,55 @@ def test_main_rejects_flags_outside_the_slice(flags, capsys):
         run_asr.main(["--images", SMOKE_IMG, *flags])
     assert exc.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+@functools.lru_cache(maxsize=None)
+def _small_deeplab(backbone="xception", weights_path=None, *, device):
+    """The CLI's model at 64 px and in f32, so that main runs on the CPU;
+    built once per backbone (main only reads it)."""
+    return build_model(DeepLabConfig(**SMALL_MODEL, backbone=backbone), seed=0,
+                       device=device)
+
+
+@pytest.mark.parametrize("flags, files, series", [
+    (["--class_id", "8,12"], ["aug_c8", "aug_c12", "standard_c8", "standard_c12"],
+     ["aug/c8", "aug/c12", "standard/c8", "standard/c12"]),
+    (["--class_id", "all", "--label_map", "--class_chunk", "7"],
+     ["aug_c1", "aug_c20", "standard_c20", "labelmap", "labelmap_standard"],
+     ["aug/c20", "label_map (mIoU)", "label_map_standard (mIoU)"]),
+    (["--sr_types", "aug,max"], ["aug", "max", "standard"], ["aug", "max", "standard"]),
+    (["--backbone", "mobilenet", "--sr_types", "max,mean"], ["max", "mean", "standard"],
+     ["max", "mean", "standard"]),
+    (["--label_map"], None, None),
+], ids=["--class_id 8,12", "--class_id all", "--sr_types aug,max",
+        "--backbone mobilenet", "--label_map"])
+def test_main_runs_the_flags_this_slice_ports(flags, files, series, tmp_path,
+                                              monkeypatch):
+    """The flags that raised "not ported yet" before now parse and run main
+    end to end (64 px, f32, 2 copies, 3 steps): the JAX CLI's file names
+    (<name>_<type>_c<id>.png per class, the label maps) and IoU series.
+    --label_map with one class exits with the JAX CLI's message."""
+    monkeypatch.setattr(run_asr, "IMG_SIZE", (64, 64))
+    monkeypatch.setattr(run_asr, "FEATURE_SIZES", {"xception": (16, 16),
+                                                   "mobilenet": (8, 8)})
+    monkeypatch.setattr(run_asr, "build_deeplab", _small_deeplab)
+    gt_dir = tmp_path / "gt"
+    gt_dir.mkdir()
+    shutil.copy(SMOKE_GT, gt_dir / "smoke_input.png")
+    argv = ["--images", SMOKE_IMG, "--gt_dir", str(gt_dir), "--num_aug", "2",
+            "--num_iter", "3", "--shift_max", "8", "--cache_dir", "",
+            "--writer_threads", "2", "--device", "cpu",
+            "--output_dir", str(tmp_path / "out"), *flags]
+    if files is None:
+        with pytest.raises(SystemExit, match="--label_map needs a multi-class"):
+            run_asr.main(argv)
+        return
+    summary = run_asr.main(argv)
+    assert summary["n_images"] == 1
+    for name in files:
+        mask = load_image(str(tmp_path / "out" / f"smoke_input_{name}.png"),
+                          is_png=True, normalize=False)
+        assert mask.shape == (64, 64, 1)
+    assert set(series) <= set(summary["ious"])
+    # NaN where a class is in neither the GT nor the mask (as the JAX CLI)
+    assert all(np.isnan(v) or 0.0 <= v <= 1.0 for v in summary["ious"].values())
