@@ -20,13 +20,22 @@ order, each phase raising on failure:
      OS8, feature 64, its own stencil, one class, aug + max + mean. Each
      reports seconds per image, the first image, peak memory, mask
      fractions and the launches of each kernel, counted from 0 for that
-     path, against the launches its design implies. With --stage-trace,
-     also a torch.profiler window around the stages ``warp`` and ``b`` of
-     two more images: device kernels and device time of each;
+     path, against the launches its design implies per step (one image,
+     or one batch). Then three more Xception paths, each with its own
+     synchronised profile: ``--batch 4`` (BATCH_IMAGES images: two full
+     batches and a ragged one, the batch riding the kernels' channel axis,
+     so a batch launches what one image does), ``--per_image_augs`` (each
+     image its own set, so each solve extracts its stencil: 35 probes of
+     the operator), ``--fast`` (the direct solver on 25-copy windows, 60
+     steps, the operator forward and backward in every step). With
+     --stage-trace, also a torch.profiler window around the stages
+     ``warp`` and ``b`` of two more images: device kernels and device time
+     of each;
   5. each kernel vs its plain version at the serving paths' shapes and
-     layouts (contiguous, stride-0 and class-major input: the copies warp,
-     the fused operator at features 128 and 64 with one or 20 target planes,
-     the inverse warp of max/mean SR with one or 20 class planes), forward
+     layouts (contiguous, stride-0 and class-major input: the copies warp
+     of one image or of a batch of 4, the fused operator at features 128
+     and 64 with one, 4 or 20 target planes and on 25-copy windows, the
+     inverse warp of max/mean SR with one or 20 class planes), forward
      and backward, with per-call device times (CUDA events around 5
      back-to-back calls behind a spin kernel, median of 10 such windows) of
      the kernel, the plain version and the library yardstick (grid_sample on
@@ -37,7 +46,13 @@ order, each phase raising on failure:
   6. small-input end-to-end checks, each on the card against the same call
      on the CPU (the plain versions): ``asr_step`` with aug, max and mean;
      ``asr_step_multiclass`` of 3 classes with the label map, unchunked and
-     in class groups of 2; MobileNetV2.
+     in class groups of 2, and of a batch of 2 images; MobileNetV2;
+     ``asr_step`` with the IRLS-CG solver and with the direct solver on
+     copy minibatches.
+
+Before any of it, a line says whether the native decode ring
+(``data/native_loader.py``, host decode) builds on this machine; the script
+serves decoded arrays and needs no ring.
 
 The serving paths run before the kernel cases and the CPU checks, so that
 neither leaves load on the card or the host while a path is timed.
@@ -82,6 +97,12 @@ PROFILE_IMAGES = 4
 MULTI_IMAGES = 4
 MOBILENET_IMAGES = 4
 CLASS_CHUNK = 5
+# The batch of the --batch path and its images: two full batches and a
+# ragged one; the images of the --per_image_augs and --fast paths.
+BATCH = 4
+BATCH_IMAGES = 9
+PER_IMAGE_IMAGES = 3
+FAST_IMAGES = 4
 # Length of the spin kernel ahead of each timing window (about 2 ms at the
 # card's clock): long enough for the host to enqueue the window behind it.
 SPIN_CYCLES = 4_000_000
@@ -125,6 +146,7 @@ def phase_device() -> torch.device:
 
 
 def phase_build():
+    from deeplabv3plus_augmented_superresolution_tpu_torch.data import native_loader
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops import shear_kernel
 
     t0 = time.perf_counter()
@@ -132,6 +154,15 @@ def phase_build():
     log(f"[build] {path.name} in {time.perf_counter() - t0:.2f}s")
     for line in diagnostics.strip().splitlines():
         log(f"[build] {line}")
+    # Host decode for run_asr's file inputs; this script serves arrays.
+    t0 = time.perf_counter()
+    if native_loader.available():
+        log(f"[build] native decode ring built in {time.perf_counter() - t0:.2f}s")
+    else:
+        lines = (native_loader.build_error() or "unknown").strip().splitlines()
+        error = next((ln for ln in lines if "error" in ln), lines[-1])
+        log("[build] native decode ring did not build here (run_asr would decode "
+            f"with PIL): {error.strip()}")
 
 
 def median_ms(fn, iters: int = 10, calls: int = 5) -> float:
@@ -231,6 +262,24 @@ def kernel_cases(device, angles, shifts):
          (100, 20, 512, 512), f32, si_c, "dense", False),
         ("budget probe +-240 (2,128,512) f32", "shear_rows", (2, 128, 512), f32, probe,
          "dense", False),
+        # --batch 4: the copies warp of 4 images (12 planes), b on 4 planes
+        ("copies warp x pass 1, batch of 4 (100,12,512,512) bf16 from 4 stride-0 "
+         "images", "shear_rows", (100, 12, 512, 512), bf16, s_a, "stride0", False),
+        ("copies warp x pass 3, batch of 4 (100,12,512,512) bf16", "shear_rows",
+         (100, 12, 512, 512), bf16, s_c3, "dense", False),
+        ("fused pass A, batch of 4 (100,4,512,512) f32 from 4 stride-0 planes",
+         "shear_rows", (100, 4, 512, 512), f32, s_a, "stride0", False),
+        ("fused pass A backward, batch of 4 (100,4,512,512) f32", "shear_rows",
+         (100, 4, 512, 512), f32, s_a, "dense", False),
+        ("fused pass C, batch of 4 (100,4,128,512) f32", "shear_rows",
+         (100, 4, 128, 512), f32, s_c, "dense", False),
+        # --fast: the direct solver's operator on 25-copy windows
+        ("direct solver pass A (25,512,512) f32 from one stride-0 plane",
+         "shear_rows", (25, 512, 512), f32, s_a[:25], "stride0", False),
+        ("direct solver pass A backward (25,512,512) f32", "shear_rows",
+         (25, 512, 512), f32, s_a[:25], "dense", False),
+        ("direct solver pass C (25,128,512) f32", "shear_rows", (25, 128, 512), f32,
+         s_c[:25], "dense", False),
         ("copies warp y pass (100,3,512,512) bf16", "shear_cols",
          (100, 3, 512, 512), bf16, s_b, "dense", True),
         ("fused pass B (100,512,512) f32", "shear_cols", (100, 512, 512), f32, s_b,
@@ -240,6 +289,12 @@ def kernel_cases(device, angles, shifts):
         ("inverse warp y pass, 20 class planes (100,20,512,512) f32 (also fused "
          "pass B of 20 planes)", "shear_cols", (100, 20, 512, 512), f32, si_b,
          "dense", False),
+        ("copies warp y pass, batch of 4 (100,12,512,512) bf16", "shear_cols",
+         (100, 12, 512, 512), bf16, s_b, "dense", False),
+        ("fused pass B, batch of 4 (100,4,512,512) f32", "shear_cols",
+         (100, 4, 512, 512), f32, s_b, "dense", False),
+        ("direct solver pass B (25,512,512) f32", "shear_cols", (25, 512, 512), f32,
+         s_b[:25], "dense", False),
         ("edge probe +-240 (2,512,128) f32", "shear_cols", (2, 512, 128), f32, probe,
          "dense", False),
         ("edge probe +-240 (2,3,512,128) bf16", "shear_cols", (2, 3, 512, 128), bf16,
@@ -407,7 +462,9 @@ def phase_small_e2e(device):
     """The per-image programs on the card vs the same calls on the CPU (the
     plain versions), at 64 px, f32: asr_step with aug, max and mean;
     asr_step_multiclass of 3 classes with the label map, unchunked and in
-    class groups of 2; asr_step on MobileNetV2 (feature 8)."""
+    class groups of 2, and of 2 classes on a batch of 2 images; asr_step on
+    MobileNetV2 (feature 8); asr_step with IRLS-CG (2 x 5 steps) and with
+    the direct solver on windows of 2 of the 4 copies (10 steps)."""
     import dataclasses
 
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
@@ -422,7 +479,11 @@ def phase_small_e2e(device):
     sr_cfg = make_sr_config(None, num_aug=4, feature_size=(16, 16),
                             output_size=(64, 64), angle_max=0.15, num_iter=30)
     mob_sr_cfg = dataclasses.replace(sr_cfg, feature_size=(8, 8))
-    image = np.random.default_rng(7).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    cg_cfg = dataclasses.replace(sr_cfg, solver_impl="cg", cg_outer=2, cg_inner=5)
+    minibatch_cfg = dataclasses.replace(sr_cfg, sgd_copies=2, num_iter=10)
+    rng = np.random.default_rng(7)
+    image = rng.uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    pair = np.stack([image, rng.uniform(0, 1, (64, 64, 3)).astype(np.float32)])
     angles, shifts = sample_augmentations(torch.Generator().manual_seed(3), 4,
                                           0.15, 8.0, device="cpu")
     sr_types = ("aug", "max", "mean")
@@ -431,6 +492,7 @@ def phase_small_e2e(device):
         model = build_model(cfg, seed=0, device=dev)
         mob = build_model(mob_cfg, seed=0, device=dev)
         img, a, sh = torch.as_tensor(image, device=dev), angles.to(dev), shifts.to(dev)
+        imgs = torch.as_tensor(pair, device=dev)
         if not outs:  # classes the random models predict, so masks are non-empty
             with torch.no_grad():
                 counts = torch.bincount(model(img[None]).argmax(-1).flatten(),
@@ -450,6 +512,15 @@ def phase_small_e2e(device):
                 class_chunk=2, return_targets=True, return_label_map=True),
             "asr_step MobileNetV2": asr_step(
                 mob, img, a, sh, mob_sr_cfg, mob_class, sr_types=sr_types,
+                return_targets=True),
+            "asr_step_multiclass batch of 2": asr_step_multiclass(
+                model, imgs, a, sh, sr_cfg, class_ids[:2], sr_types=sr_types,
+                return_targets=True, return_label_map=True),
+            "asr_step cg": asr_step(
+                model, img, a, sh, cg_cfg, class_ids[0], sr_types=("aug",),
+                return_targets=True),
+            "asr_step direct minibatch": asr_step(
+                model, img, a, sh, minibatch_cfg, class_ids[0], sr_types=("aug",),
                 return_targets=True),
         }
         outs[dev.type] = {label: {k: v.cpu() for k, v in out.items()}
@@ -530,14 +601,19 @@ def phase_stage_trace(device, images, model, sr_cfg, class_id, coeffs):
             + " (one window per image, the first includes first-use work)")
 
 
-def expected_launches(sr_types, groups: int = 1):
-    """Kernel launches per image that the design implies: the copies warp
-    (two x passes, one y pass; the channels ride along as planes) once, and
-    per class group b = A^T y (the fused operator's three passes forward and
-    three backward) when "aug" is served, and one inverse warp (three passes)
-    when "max" or "mean" is. The K classes of a group ride the kernels'
-    channel axis, so K does not count; groups = ceil(K / class_chunk), 1
-    when unchunked. The stencil is given, so no probe launches."""
+def expected_launches(sr_types, groups: int = 1, probes: int = 0,
+                      direct_steps: int = 0):
+    """Kernel launches per step (one image, or one batch: its images ride
+    the kernels' channel axis, so the batch size does not count) that the
+    design implies: the copies warp (two x passes, one y pass; the channels
+    ride along as planes) once, and per class group for "aug" one
+    application of the fused operator (three passes) forward and one
+    backward for b = A^T y, plus as many for each of the stencil's probes
+    when the step extracts its own (``probes``), or instead of both, one
+    forward and one backward in each step of the direct solver
+    (``direct_steps``); and one inverse warp (three passes) when "max" or
+    "mean" is served. The K classes of a group ride the channel axis too, so
+    K does not count; groups = ceil(K / class_chunk), 1 when unchunked."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.fused_operator import (
         OPERATOR_LAUNCHES)
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
@@ -545,7 +621,10 @@ def expected_launches(sr_types, groups: int = 1):
 
     out = {}
     for name in KERNELS:
-        per_group = 2 * OPERATOR_LAUNCHES[name] if "aug" in sr_types else 0
+        per_group = 0
+        if "aug" in sr_types:
+            applications = direct_steps if direct_steps else 1 + probes
+            per_group += 2 * OPERATOR_LAUNCHES[name] * applications
         if "max" in sr_types or "mean" in sr_types:
             per_group += WARP_LAUNCHES[name]
         out[name] = WARP_LAUNCHES[name] + groups * per_group
@@ -559,10 +638,11 @@ def most_frequent_class(model, image, device) -> int:
 
 
 def serve_path(label, device, images, model, sr_cfg, coeffs, expected, **kw):
-    """One serving path as a user runs it: no timer, so nothing inside an
-    image waits for the card and the host enqueues ahead of it. The launch
-    counts are set to 0 just before and read just after; peak memory is
-    this path's own."""
+    """One serving path as a user runs it: no timer, so nothing inside a
+    step waits for the card and the host enqueues ahead of it. The launch
+    counts are set to 0 just before and read just after, and must be the
+    design's per step times the steps (one per image, or one per batch of
+    kw["batch"] images); peak memory is this path's own."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import serve
 
     counters = launch_counters()
@@ -575,28 +655,40 @@ def serve_path(label, device, images, model, sr_cfg, coeffs, expected, **kw):
     launches = {name: counter.launches for name, counter in counters.items()}
     peak = torch.cuda.max_memory_allocated(device)
     n_images = len(images)
-    log(f"[{label}] {summary['n_images']} images, first {summary['first_image_s']:.3f}s, "
-        f"steady {summary['steady_s_per_image']:.3f} s/image, wall "
+    n_steps = -(-n_images // max(kw.get("batch", 0), 1))
+    done = summary["done_ts"]
+    if len(done) < 2:
+        raise AssertionError(f"[{label}] a path needs two steps for a steady rate")
+    per_step = (done[-1] - done[0]) / (len(done) - 1)
+    log(f"[{label}] {summary['n_images']} images in {summary['steps']} steps, first "
+        f"step {summary['first_image_s']:.3f}s, steady "
+        f"{summary['steady_s_per_image']:.3f} s/image ({per_step:.3f} s/step; a "
+        f"ragged last batch does a full batch's work), wall "
         f"{summary['wall_s']:.2f}s, peak memory {peak / 2**30:.2f} GiB")
     fractions = summary["mask_fractions"].values()
     mean_fraction = {key: round(float(np.mean([fr[key] for fr in fractions])), 4)
                      for key in next(iter(fractions))}
     log(f"[{label}] mask fractions, mean over the images (nonzero ones): "
         + json.dumps({k: v for k, v in mean_fraction.items() if v > 0}))
-    log(f"[{label}] kernel launches {json.dumps(launches)} over {n_images} images, "
-        f"expected per image {json.dumps(expected)}")
-    if summary["n_images"] != n_images or len(summary["mask_fractions"]) != n_images:
+    log(f"[{label}] kernel launches {json.dumps(launches)} over {n_images} images in "
+        f"{n_steps} steps, expected per step {json.dumps(expected)}")
+    if (summary["n_images"] != n_images or summary["steps"] != n_steps
+            or len(summary["mask_fractions"]) != n_images):
         raise AssertionError(f"[{label}] not every image was served")
     for name, count in launches.items():
-        if count <= 0 or count != expected[name] * n_images:
+        if count <= 0 or count != expected[name] * n_steps:
             raise AssertionError(f"[{label}] {count} {name} launches, expected "
-                                 f"{expected[name] * n_images}")
+                                 f"{expected[name] * n_steps}")
     for name, fr in summary["mask_fractions"].items():
         if not all(0.0 <= v <= 1.0 for v in fr.values()):
             raise AssertionError(f"[{label}] mask fractions out of range for {name}")
-    return {"launches": launches, "n_images": n_images, "peak_bytes": peak,
+    return {"launches": launches, "n_images": n_images, "steps": n_steps,
+            "launches_per_step": expected, "peak_bytes": peak,
             "first_image_s": summary["first_image_s"],
-            "steady_s_per_image": summary["steady_s_per_image"]}
+            "steady_s_per_image": summary["steady_s_per_image"],
+            "steady_s_per_step": per_step,
+            "loop_stages_ms": {k: round(v["ms_per_call"], 3)
+                               for k, v in summary["loop_stages"].items()}}
 
 
 def profile_path(label, device, images, model, sr_cfg, coeffs, **kw):
@@ -610,8 +702,9 @@ def profile_path(label, device, images, model, sr_cfg, coeffs, **kw):
     timer = StageTimer(sync_device=device)
     profile = serve(images, model, sr_cfg, device=device, gram_coeffs=coeffs,
                     writer_threads=2, timer=timer, **kw)
-    log(f"[{label}-profile] synchronised stages, {profile['n_images']} images, "
-        f"steady {profile['steady_s_per_image']:.3f} s/image")
+    log(f"[{label}-profile] synchronised stages, {profile['n_images']} images in "
+        f"{profile['steps']} steps (a call is a step), steady "
+        f"{profile['steady_s_per_image']:.3f} s/image")
     for stage, d in profile["stages"].items():
         log(f"[{label}-profile] stage {stage}: {d['ms_per_call']:.2f} ms/call"
             f" (steady {d.get('steady_ms_per_call', float('nan')):.2f}) x{d['calls']}")
@@ -638,6 +731,67 @@ def phase_serve(device, images, coeffs, sr_cfg):
     profile_path("serve", device, images[:PROFILE_IMAGES], model, sr_cfg, coeffs,
                  class_id=class_id)
     return result, class_id, model
+
+
+def phase_serve_new_paths(device, model, images, coeffs, sr_cfg, class_id, angles,
+                          shifts):
+    """This slice's Xception paths, one class, aug: --batch BATCH on
+    BATCH_IMAGES images (a ragged last batch); --per_image_augs (each solve
+    extracts its own stencil); --fast (the CLI's preset: the direct solver on
+    25-copy windows, 60 steps). Each with the launches its design implies
+    per step and a synchronised profile; and the full-size targets of one
+    batch are finite."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+        FEATURE_SIZES, make_sr_config, parse_args)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import (
+        RADIUS_X, RADIUS_Y)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
+
+    paths = {}
+    expected = expected_launches(("aug",))
+    if expected != {"shear_rows": 6, "shear_cols": 3}:
+        raise AssertionError(f"[serve-batch] the per-batch split moved: {expected}")
+    paths["serve-batch"] = serve_path(f"serve-batch-{BATCH}", device,
+                                      images[:BATCH_IMAGES], model, sr_cfg, coeffs,
+                                      expected, class_id=class_id, batch=BATCH)
+    profile_path(f"serve-batch-{BATCH}", device, images[:2 * BATCH], model, sr_cfg,
+                 coeffs, class_id=class_id, batch=BATCH)
+    out = asr_step(model, torch.stack([torch.as_tensor(img, device=device)
+                                       for _, img in images[:BATCH]]),
+                   angles, shifts, sr_cfg, class_id, th_factor=0.2, sr_types=("aug",),
+                   gram_coeffs=coeffs, return_targets=True)
+    target = out["aug_target"]
+    if tuple(target.shape) != (BATCH, 512, 512, 1) or not bool(
+            torch.isfinite(target).all()):
+        raise AssertionError("[serve-batch] targets are not a finite "
+                             f"({BATCH}, 512, 512, 1) stack")
+
+    probes = (2 * RADIUS_Y + 1) * (RADIUS_X + 1)   # the aliased extraction's
+    expected = expected_launches(("aug",), probes=probes)
+    if expected != {"shear_rows": 146, "shear_cols": 73}:
+        raise AssertionError(f"[serve-per-image-augs] the split moved: {expected}")
+    paths["serve-per-image-augs"] = serve_path(
+        "serve-per-image-augs", device, images[:PER_IMAGE_IMAGES], model, sr_cfg, None,
+        expected, class_id=class_id, per_image_augs=True)
+    profile_path("serve-per-image-augs", device, images[:2], model, sr_cfg, None,
+                 class_id=class_id, per_image_augs=True)
+
+    args = parse_args(["--images", "unused.jpg", "--fast"])
+    fast_cfg = make_sr_config(args, num_aug=args.num_aug,
+                              feature_size=FEATURE_SIZES["xception"],
+                              angle_max=args.angle_max)
+    log(f"[serve-fast] preset: {fast_cfg.num_iter} steps, lr "
+        f"{fast_cfg.optimizer.learning_rate}, decay {fast_cfg.optimizer.decay_rate} "
+        f"per {fast_cfg.optimizer.decay_steps} steps, windows of "
+        f"{fast_cfg.sgd_copies} of {fast_cfg.num_aug} copies")
+    expected = expected_launches(("aug",), direct_steps=fast_cfg.num_iter)
+    if expected != {"shear_rows": 242, "shear_cols": 121}:
+        raise AssertionError(f"[serve-fast] the per-image split moved: {expected}")
+    paths["serve-fast"] = serve_path("serve-fast", device, images[:FAST_IMAGES], model,
+                                     fast_cfg, None, expected, class_id=class_id)
+    profile_path("serve-fast", device, images[:2], model, fast_cfg, None,
+                 class_id=class_id)
+    return paths
 
 
 def phase_serve_multiclass(device, model, images, coeffs, sr_cfg, angles, shifts):
@@ -755,11 +909,14 @@ def main() -> None:
     mob_coeffs = phase_stencil(device, angles, shifts, mob_sr_cfg, "MobileNetV2")
     # The serving paths come before the kernel cases and the CPU references,
     # so that no earlier phase's load is on the card or the host when they run.
-    images = make_images(args.seed, max(args.images, MULTI_IMAGES, MOBILENET_IMAGES))
+    images = make_images(args.seed, max(args.images, MULTI_IMAGES, MOBILENET_IMAGES,
+                                        BATCH_IMAGES, PER_IMAGE_IMAGES, FAST_IMAGES))
     paths = {}
     paths["serve"], class_id, model = phase_serve(device, images[:args.images],
                                                   coeffs, sr_cfg)
     check_target(model, device, images[0][1], class_id, coeffs, sr_cfg, angles, shifts)
+    paths.update(phase_serve_new_paths(device, model, images, coeffs, sr_cfg, class_id,
+                                       angles, shifts))
     paths["serve-20-classes"], paths["serve-20-classes-chunked"] = phase_serve_multiclass(
         device, model, images[:MULTI_IMAGES], coeffs, sr_cfg, angles, shifts)
     if args.stage_trace:

@@ -1,12 +1,17 @@
 """Fused end-to-end ASR serving over a directory / file list.
 
-Port of the JAX repository's ``cli/run_asr.py`` for its per-image programs:
-one fixed test-time-augmentation (TTA) set per run, the Gram stencil loaded
-from the cache or extracted once (when "aug" is among the SR types), then
-``asr_step`` (one class) or ``asr_step_multiclass`` (a class list or 'all',
-optionally with the full-scene label map) per image, and a writer pool for
-PNGs and IoUs. Xception or MobileNetV2. The same flag names and defaults;
-flags that select paths not ported yet raise a clear error.
+Port of the JAX repository's ``cli/run_asr.py`` on one card: one fixed
+test-time-augmentation (TTA) set per run, the Gram stencil loaded from the
+cache or extracted once (when the solver can use it), then ``asr_step`` (one
+class) or ``asr_step_multiclass`` (a class list or 'all', optionally with
+the full-scene label map) per image or per batch of ``--batch`` images, and
+a writer pool for PNGs and IoUs. ``--per_image_augs`` draws a fresh set per
+image instead (each solve then extracts its own stencil); ``--fast`` is the
+minibatched direct solver's preset. Images are decoded by the native ring
+(``data/native_loader.py``) where it builds, else by a Python lookahead, and
+staged to the card by a thread: pinned host memory, a side stream. Xception
+or MobileNetV2. The same flag names and defaults; flags that select paths
+not ported yet raise a clear error.
 
   python -m deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr \\
       --images test_images/smoke_input.jpg --gt_dir <dir of <name>.png>
@@ -16,9 +21,11 @@ files and calls it.
 """
 
 import argparse
+import contextlib
 import glob
 import json
 import os
+import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -30,8 +37,10 @@ import torch
 from ..models import DeepLabConfig, build_model, default_weights_path
 from ..models.deeplab import DeepLab
 from ..pipeline import asr_step, asr_step_multiclass, sample_augmentations
+from ..pipeline.augment import image_generator
 from ..pipeline.end_to_end import SR_TYPES
 from ..sr import OptimizerConfig, SRConfig, load_stencil, precompute_gram_stencil, save_stencil
+from ..utils.profiling import StageTimer
 
 SEED = 1234
 IMG_SIZE = (512, 512)
@@ -44,6 +53,10 @@ DEFAULT_CACHE_DIR = os.path.join(
     ".dsr_cache")
 
 NOT_PORTED = "is not ported yet (ROADMAP Queue 1: {!r})"
+BATCH_NEEDS_SHARED_TTA = ("--batch requires the fixed-TTA-set mode "
+                          "(drop --per_image_augs)")
+# Batches staged ahead of the card by the staging thread.
+STAGING_DEPTH = 2
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,13 +88,18 @@ def build_parser() -> argparse.ArgumentParser:
                              "<name>_labelmap_standard.png, with mean-IoU "
                              "scores when --gt_dir is given")
     parser.add_argument("--fast", action="store_true",
-                        help="minibatched fast preset (not ported yet)")
+                        help="tuned fast preset: 60 iters, lr 1e-2, 25-copy minibatch")
     parser.add_argument("--per_image_augs", action="store_true",
-                        help="a fresh augmentation set per image (not ported yet)")
+                        help="draw a fresh random augmentation set per image "
+                             "(reference behavior; each solve extracts its "
+                             "own stencil). Default: one fixed TTA set for "
+                             "the run")
     parser.add_argument("--prefetch", type=int, default=4,
                         help="host-side image decode lookahead (0 disables)")
     parser.add_argument("--batch", type=int, default=0,
-                        help="images per device program (values > 1 not ported yet)")
+                        help="images per step on the card (0 or 1 = one "
+                             "image per step): the batch rides the kernels' "
+                             "channel axis and shares one solve")
     parser.add_argument("--weights_path", type=str, default=None)
     parser.add_argument("--limit", type=int, default=None)
     parser.add_argument("--chunk_size", type=int, default=0,
@@ -139,20 +157,22 @@ def add_sr_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def _unported_flags(args) -> List[str]:
     """One message per flag that selects a path the port does not have."""
-    solvers = "the direct and CG solvers, minibatching and dropout"
     checks = [
-        (args.batch > 1, "--batch > 1", "the --batch path and the native staging ring"),
-        (args.solver_impl != "gram", f"--solver_impl {args.solver_impl}", solvers),
-        (args.fast, "--fast", solvers),
-        (args.sgd_copies > 0, "--sgd_copies", solvers),
-        (args.copy_dropout > 0, "--copy_dropout", solvers),
-        (args.per_image_augs, "--per_image_augs", "the --batch path and the native staging ring"),
-        (args.optimizer != "adam", f"--optimizer {args.optimizer}", solvers),
         (args.warp_impl != "shear", "--warp_impl gather", "ops/warp.py"),
         (args.operator_impl != "fused", "--operator_impl staged", "ops/warp.py"),
         (args.profile_dir is not None, "--profile_dir", "the remaining CLIs"),
     ]
     return [f"{flag} {NOT_PORTED.format(item)}" for bad, flag, item in checks if bad]
+
+
+def apply_fast_preset(args: argparse.Namespace) -> None:
+    """--fast: at most 60 steps, lr at least 1e-2 decaying 10x over a fifth
+    of the steps, 25-copy minibatches (the JAX CLI's preset)."""
+    args.num_iter = min(args.num_iter, 60)
+    args.learning_rate = max(args.learning_rate, 1e-2)
+    args.decay_steps = max(args.num_iter // 5, 1)
+    args.decay_rate = 0.1
+    args.sgd_copies = args.sgd_copies or 25
 
 
 def parse_class_ids(spec: str) -> Tuple[int, ...]:
@@ -174,12 +194,15 @@ def parse_sr_types(spec: str) -> Tuple[str, ...]:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """Parse and validate: flags outside the ported slice exit with an error,
-    and so does --label_map without several classes and 'aug'."""
+    and so do --label_map without several classes and 'aug' and --batch with
+    --per_image_augs; --fast applies its preset."""
     parser = build_parser()
     args = parser.parse_args(argv)
     problems = _unported_flags(args)
     if problems:
         parser.error("; ".join(problems))
+    if args.fast:
+        apply_fast_preset(args)
     sr_types = parse_sr_types(args.sr_types)
     if not sr_types or any(t not in SR_TYPES for t in sr_types):
         parser.error(f"--sr_types must be a comma list of {','.join(SR_TYPES)}, "
@@ -188,6 +211,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.label_map and (len(class_ids) < 2 or "aug" not in sr_types):
         raise SystemExit("--label_map needs a multi-class --class_id and "
                          "'aug' in --sr_types")
+    if args.batch > 1 and args.per_image_augs:
+        raise SystemExit(BATCH_NEEDS_SHARED_TTA)
     return args
 
 
@@ -283,40 +308,164 @@ def _stencil_for_run(angles, shifts, sr_cfg: SRConfig, cache_dir: str) -> torch.
     return coeffs
 
 
+def uses_shared_stencil(sr_cfg: SRConfig, sr_types: Sequence[str]) -> bool:
+    """Whether a fixed-TTA run extracts the stencil once for every solve: the
+    solver reads one ("gram" or "cg", no minibatching) and no copy dropout
+    makes it change per solve (the JAX CLI's condition)."""
+    return (sr_cfg.solver_impl in ("gram", "cg") and "aug" in sr_types
+            and sr_cfg.copy_dropout == 0.0
+            and not 0 < sr_cfg.sgd_copies < sr_cfg.num_aug)
+
+
+def _host_image(image, dtype: torch.dtype) -> torch.Tensor:
+    """A decoded (H, W, 3) image (numpy float, or a tensor from the native
+    ring) as a CPU tensor of the model's compute dtype."""
+    if not isinstance(image, torch.Tensor):
+        image = torch.from_numpy(np.asarray(image, np.float32))
+    return image.to(dtype)
+
+
+def _host_batches(images: Iterable[Tuple[str, np.ndarray]], batch: int,
+                  dtype: torch.dtype, timer: StageTimer
+                  ) -> Iterator[Tuple[List[str], torch.Tensor]]:
+    """(names, (batch, H, W, 3) stack) in order; a ragged tail is padded by
+    repeating its last image, and names lists only the real ones."""
+    names: List[str] = []
+    stack: List[torch.Tensor] = []
+    it = iter(images)
+    while True:
+        with timer.stage("host_decode"):
+            item = next(it, None)
+        if item is None:
+            break
+        names.append(item[0])
+        stack.append(_host_image(item[1], dtype))
+        if len(names) == batch:
+            yield names, torch.stack(stack)
+            names, stack = [], []
+    if names:
+        stack += [stack[-1]] * (batch - len(stack))
+        yield names, torch.stack(stack)
+
+
+@contextlib.contextmanager
+def _staged(batches: Iterator[Tuple[List[str], torch.Tensor]], device: torch.device,
+            timer: StageTimer):
+    """The batches on the device, staged STAGING_DEPTH ahead by a thread. On
+    a card the thread copies each batch from pinned host memory on a side
+    stream; the consumer's stream waits on the copy's event, and the tensor
+    is recorded on that stream, so the allocator does not hand its memory
+    out while the step still reads it. Yields an iterator of
+    (names, device batch); the thread stops when the context exits."""
+    items: "queue.Queue" = queue.Queue(maxsize=STAGING_DEPTH)
+    stop = threading.Event()
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                items.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for names, host in batches:
+                with timer.stage("host_to_device"):
+                    if copy_stream is None:
+                        staged = (names, host.to(device), None)
+                    else:
+                        host = host.pin_memory()
+                        with torch.cuda.stream(copy_stream):
+                            dev = host.to(device, non_blocking=True)
+                            done = torch.cuda.Event()
+                            done.record(copy_stream)
+                        staged = (names, dev, done)
+                if not put(staged):
+                    return
+            put(None)
+        except BaseException as exc:  # hand the failure to the consumer
+            put(exc)
+
+    def consume():
+        while (item := items.get()) is not None:
+            if isinstance(item, BaseException):
+                raise item
+            names, dev, done = item
+            if done is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(done)
+                dev.record_stream(stream)
+            yield names, dev
+
+    thread = threading.Thread(target=produce, name="asr-staging", daemon=True)
+    thread.start()
+    try:
+        yield consume()
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+
+
 def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRConfig,
           *, device, class_id: Union[int, Sequence[int]] = 8, mode: str = "argmax",
           th_factor: float = 0.2, angle_max: float = 0.15, shift_max: float = 80.0,
           sr_types: Sequence[str] = ("aug",), label_map: bool = False,
-          class_chunk: int = 0,
+          class_chunk: int = 0, batch: int = 0, per_image_augs: bool = False,
           output_dir: Optional[str] = None,
           gt_dir: Optional[str] = None, cache_dir: str = "",
           gram_coeffs: Optional[torch.Tensor] = None, chunk_size: int = 0,
-          writer_threads: int = 4, summary_json: str = "", timer=None) -> Dict:
-    """Serve (name, (H, W, 3) float image in [0, 1]) pairs through ASR.
+          writer_threads: int = 4, summary_json: str = "", timer=None,
+          loader: str = "arrays") -> Dict:
+    """Serve (name, (H, W, 3) image in [0, 1]) pairs through ASR. An image is
+    a float numpy array or a CPU tensor (the native ring's bf16 frames).
 
-    Per run: one TTA set drawn from SEED, the Gram stencil (given, from the
-    cache, or extracted once; only when "aug" is among sr_types), then per
-    image ``asr_step`` for one class or ``asr_step_multiclass`` for several
-    (class_id a sequence of more than one id; label_map adds the full-scene
-    label map). The writer pool fetches each result and, when output_dir is
-    given, writes ``{name}_{type}.png`` per SR type and "standard" (one
-    class) or ``{name}_{type}_c{id}.png`` per class, plus
-    ``{name}_labelmap.png`` and ``{name}_labelmap_standard.png``; it scores
-    IoU against ``gt_dir/{name}.png`` when present (series "<type>" or
-    "<type>/c<id>", and the label maps' mean IoU). Returns the run summary,
-    also written to summary_json when given.
+    Per run: one TTA set drawn from SEED and, when the solver reads it
+    (``uses_shared_stencil``), the Gram stencil (given, from the cache, or
+    extracted once); with per_image_augs instead a set per image from SEED
+    and its name (``pipeline.augment.image_generator``), each solve
+    extracting its own stencil. Then per step ``asr_step`` for one class or
+    ``asr_step_multiclass`` for several (class_id a sequence of more than one
+    id; label_map adds the full-scene label map), on one image or, with
+    batch > 1, on a batch of that many (a ragged last batch padded with its
+    last image, whose results are dropped). A staging thread moves the
+    batches to the device ahead of the step. The writer pool fetches each
+    step's masks as one packed uint8 tensor and, when output_dir is given,
+    writes ``{name}_{type}.png`` per SR type and "standard" (one class) or
+    ``{name}_{type}_c{id}.png`` per class, plus ``{name}_labelmap.png`` and
+    ``{name}_labelmap_standard.png``; it scores IoU against
+    ``gt_dir/{name}.png`` when present (series "<type>" or "<type>/c<id>",
+    and the label maps' mean IoU).
+
+    Returns the run summary, also written to summary_json when given: the
+    steady seconds per image count from the first step's completion
+    (``first_image_s``) to the last; "loop_stages" times the loop's host
+    stages (host_decode, host_to_device, dispatch, device_fetch,
+    encode_write_score; they overlap), "stages" the timer's; "loader" names
+    what decoded the images.
     """
     device = torch.device(device)
     class_ids = (int(class_id),) if isinstance(class_id, int) else tuple(class_id)
     multi = len(class_ids) > 1
     sr_types = tuple(sr_types)
+    step_images = max(batch, 1)
     if label_map and (not multi or "aug" not in sr_types):
         raise ValueError("label_map needs several classes and 'aug' in sr_types")
-    generator = torch.Generator().manual_seed(SEED)
-    angles, shifts = sample_augmentations(generator, sr_cfg.num_aug, angle_max,
-                                          shift_max, device=device)
-    if gram_coeffs is None and "aug" in sr_types:
-        gram_coeffs = _stencil_for_run(angles, shifts, sr_cfg, cache_dir)
+    if per_image_augs and step_images > 1:
+        raise ValueError(BATCH_NEEDS_SHARED_TTA)
+    shared_stencil = not per_image_augs and uses_shared_stencil(sr_cfg, sr_types)
+    if gram_coeffs is not None and not shared_stencil:
+        raise ValueError("gram_coeffs needs a fixed TTA set and a solver that "
+                         "reads one stencil for every solve")
+    angles = shifts = None
+    if not per_image_augs:
+        angles, shifts = sample_augmentations(torch.Generator().manual_seed(SEED),
+                                              sr_cfg.num_aug, angle_max, shift_max,
+                                              device=device)
+        if gram_coeffs is None and shared_stencil:
+            gram_coeffs = _stencil_for_run(angles, shifts, sr_cfg, cache_dir)
 
     out_keys = tuple(sorted(set(sr_types) | {"standard"}))
     lm_keys = ("label_map", "label_map_standard") if label_map else ()
@@ -330,13 +479,22 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
         series = list(out_keys)
     ious: Dict[str, List[float]] = {}
     fractions: Dict[str, Dict[str, float]] = {}
-    done_ts: List[float] = []
+    done: List[Tuple[float, int]] = []   # (completion time, images) per step
     lock = threading.Lock()
+    loop_timer = StageTimer()
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
 
-    def emit(name: str, packed: torch.Tensor) -> None:
-        masks = packed.cpu().numpy()  # waits for this image's device work
+    def emit(image_names: List[str], packed: torch.Tensor) -> None:
+        with loop_timer.stage("device_fetch"):
+            masks = packed.cpu().numpy()  # waits for this step's device work
+        with loop_timer.stage("encode_write_score"):
+            for i, name in enumerate(image_names):
+                emit_one(name, masks[:, i])
+        with lock:
+            done.append((time.perf_counter(), len(image_names)))
+
+    def emit_one(name: str, masks: np.ndarray) -> None:
         if output_dir:
             from ..data.io import save_img
             for j, key in enumerate(names):
@@ -358,47 +516,61 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
                                for j, key in enumerate(series + list(lm_keys))}
             for key, v in scores.items():
                 ious.setdefault(key, []).append(v)
-            done_ts.append(time.perf_counter())
+
+    def step(image_names: List[str], batch_images: torch.Tensor) -> torch.Tensor:
+        """One step on the device: the (P, B, H, W, 1) uint8 masks."""
+        a, sh = angles, shifts
+        if per_image_augs:
+            a, sh = sample_augmentations(image_generator(SEED, image_names[0]),
+                                         sr_cfg.num_aug, angle_max, shift_max,
+                                         device=device)
+        kw = dict(mode=mode, th_factor=th_factor, sr_types=sr_types,
+                  chunk_size=chunk_size, gram_coeffs=gram_coeffs, timer=timer)
+        if multi:
+            out = asr_step_multiclass(model, batch_images, a, sh, sr_cfg, class_ids,
+                                      class_chunk=class_chunk,
+                                      return_label_map=label_map, **kw)
+            planes = [out[k].transpose(0, 1) for k in out_keys] + \
+                [out[k][None] for k in lm_keys]
+            return torch.cat(planes).to(torch.uint8)
+        out = asr_step(model, batch_images, a, sh, sr_cfg, class_ids[0], **kw)
+        return torch.stack([out[k] for k in out_keys]).to(torch.uint8)
 
     writer = ArtifactWriter(writer_threads) if writer_threads else None
     start = time.perf_counter()
-    n_images = 0
+    n_images = n_steps = 0
+    host = _host_batches(images, step_images, model.cfg.dtype, loop_timer)
     try:
-        for name, image in images:
-            image_t = torch.as_tensor(np.asarray(image, np.float32)).to(device)
-            if multi:
-                out = asr_step_multiclass(
-                    model, image_t, angles, shifts, sr_cfg, class_ids, mode=mode,
-                    th_factor=th_factor, sr_types=sr_types, chunk_size=chunk_size,
-                    class_chunk=class_chunk, gram_coeffs=gram_coeffs,
-                    return_label_map=label_map, timer=timer)
-                planes = [out[k] for k in out_keys] + [out[k][None] for k in lm_keys]
-                packed = torch.cat(planes).to(torch.uint8)
-            else:
-                out = asr_step(model, image_t, angles, shifts, sr_cfg, class_ids[0],
-                               mode=mode, th_factor=th_factor, sr_types=sr_types,
-                               chunk_size=chunk_size, gram_coeffs=gram_coeffs,
-                               timer=timer)
-                packed = torch.stack([out[k] for k in out_keys]).to(torch.uint8)
-            if writer:
-                writer.submit(emit, name, packed)
-            else:
-                emit(name, packed)
-            n_images += 1
+        with _staged(host, device, loop_timer) as staged:
+            for image_names, batch_images in staged:
+                with loop_timer.stage("dispatch"):
+                    packed = step(image_names, batch_images)[:, :len(image_names)]
+                if writer:
+                    writer.submit(emit, image_names, packed)
+                else:
+                    emit(image_names, packed)
+                n_images += len(image_names)
+                n_steps += 1
     finally:
         if writer:
             writer.close()
     wall = time.perf_counter() - start
-    done = sorted(t - start for t in done_ts)
+    done.sort()
+    first_s = done[0][0] - start if done else None
+    later = sum(n for _, n in done[1:])
     summary = {
         "n_images": n_images,
+        "batch": batch,
+        "steps": n_steps,
+        "loader": loader,
+        "per_image_augs": per_image_augs,
         "wall_s": wall,
-        "first_image_s": done[0] if done else None,
-        "steady_s_per_image": ((done[-1] - done[0]) / (len(done) - 1)
-                               if len(done) > 1 else None),
-        "done_ts": done,
+        "first_image_s": first_s,
+        "steady_s_per_image": ((done[-1][0] - done[0][0]) / later if later else None),
+        "done_ts": [t - start for t, _ in done],
         "mask_fractions": fractions,
         "ious": {k: float(np.mean(v)) for k, v in ious.items() if v},
+        "loop_stages": loop_timer.as_dict(),
         "stages": timer.as_dict() if timer is not None else {},
     }
     if summary_json:
@@ -417,14 +589,17 @@ def _resolve_paths(spec: str, limit: Optional[int]) -> List[str]:
     return paths[:limit] if limit else paths
 
 
+def _name(path: str) -> str:
+    return os.path.splitext(os.path.basename(path))[0]
+
+
 def _decoded(paths: List[str], prefetch: int) -> Iterator[Tuple[str, np.ndarray]]:
-    """(name, image) pairs, decoded up to ``prefetch`` images ahead on a
-    thread (0: inline)."""
+    """(name, image) pairs, decoded by PIL up to ``prefetch`` images ahead on
+    a thread (0: inline)."""
     from ..data.io import load_image
 
     def load(path):
-        name = os.path.splitext(os.path.basename(path))[0]
-        return name, load_image(path, image_size=IMG_SIZE, normalize=True)
+        return _name(path), load_image(path, image_size=IMG_SIZE, normalize=True)
 
     if prefetch <= 0:
         for p in paths:
@@ -440,6 +615,33 @@ def _decoded(paths: List[str], prefetch: int) -> Iterator[Tuple[str, np.ndarray]
             yield fut.result()
 
 
+def _ring_frames(paths: List[str], prefetch: int,
+                 dtype: torch.dtype) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, frame) pairs from the native ring, frames in the model's dtype."""
+    from ..data import native_loader
+
+    ring_dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    with native_loader.ImageRing(paths, IMG_SIZE, normalize=True,
+                                 n_threads=min(4, prefetch),
+                                 capacity=max(2, prefetch), dtype=ring_dtype) as ring:
+        for i, frame in ring:
+            yield _name(paths[i]), frame
+
+
+def image_source(paths: List[str], prefetch: int, dtype: torch.dtype
+                 ) -> Tuple[str, Iterator[Tuple[str, np.ndarray]]]:
+    """(loader name, decoded images): the native ring where it builds and
+    every input is a .jpg, else PIL on a lookahead thread (inline with
+    prefetch 0), as the JAX CLI chooses."""
+    if prefetch > 0:
+        from ..data import native_loader
+
+        if all(p.endswith(".jpg") for p in paths) and native_loader.available():
+            return "native ring", _ring_frames(paths, prefetch, dtype)
+        return "python lookahead", _decoded(paths, prefetch)
+    return "python inline", _decoded(paths, 0)
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     paths = _resolve_paths(args.images, args.limit)
@@ -450,18 +652,22 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     sr_cfg = make_sr_config(args, num_aug=args.num_aug,
                             feature_size=FEATURE_SIZES[args.backbone],
                             output_size=IMG_SIZE, angle_max=args.angle_max)
-    summary = serve(_decoded(paths, args.prefetch), model, sr_cfg, device=device,
+    loader, images = image_source(paths, args.prefetch, model.cfg.dtype)
+    print(f"images decoded by the {loader}")
+    summary = serve(images, model, sr_cfg, device=device,
                     class_id=parse_class_ids(args.class_id), mode=args.mode,
                     th_factor=args.th_factor, angle_max=args.angle_max,
                     shift_max=args.shift_max, sr_types=parse_sr_types(args.sr_types),
                     label_map=args.label_map, class_chunk=args.class_chunk,
+                    batch=args.batch, per_image_augs=args.per_image_augs,
                     output_dir=args.output_dir,
                     gt_dir=args.gt_dir, cache_dir=args.cache_dir,
                     chunk_size=args.chunk_size, writer_threads=args.writer_threads,
-                    summary_json=args.summary_json)
+                    summary_json=args.summary_json, loader=loader)
     msg = f"{summary['n_images']} images in {summary['wall_s']:.1f}s"
     if summary["steady_s_per_image"]:
-        msg += f" ({summary['steady_s_per_image']:.3f} s/image steady)"
+        msg += f" ({summary['steady_s_per_image']:.3f} s/image steady"
+        msg += f", batch={args.batch})" if args.batch > 1 else ")"
     print(msg + f"; masks under {args.output_dir}")
     for k, v in summary["ious"].items():
         print(f"  avg IoU[{k}]: {v:.4f}")

@@ -6,7 +6,8 @@ from .shear_kernel import shear_cols_cuda, shear_rows_cuda
 from .fused_operator import fused_warp_downsample
 from .opm import (extract_masks, extract_masks_multiclass, min_max_normalization,
                   normalize_stack, prepare_sr_inputs)
-from .gradients import bilateral_tv, image_gradients, total_variation
+from .gradients import (bilateral_tv, image_gradients, image_gradients_transpose,
+                        total_variation)
 
 __all__ = [
     "resize",
@@ -28,5 +29,6 @@ __all__ = [
     "prepare_sr_inputs",
     "bilateral_tv",
     "image_gradients",
+    "image_gradients_transpose",
     "total_variation",
 ]

@@ -27,6 +27,16 @@ def image_gradients(image: torch.Tensor):
     return dy, dx
 
 
+def image_gradients_transpose(vy: torch.Tensor, vx: torch.Tensor) -> torch.Tensor:
+    """D^T (vy, vx): the adjoint of ``image_gradients`` for (B, H, W, C)
+    fields. The zero-padded last row of vy and last column of vx never meet
+    a real difference, so they are ignored."""
+    vy, vx = vy[:, :-1], vx[:, :, :-1]
+    dty = F.pad(vy, (0, 0, 0, 0, 1, 0)) - F.pad(vy, (0, 0, 0, 0, 0, 1))
+    dtx = F.pad(vx, (0, 0, 1, 0)) - F.pad(vx, (0, 0, 0, 1))
+    return dty + dtx
+
+
 def total_variation(image: torch.Tensor) -> torch.Tensor:
     """Anisotropic TV: sum |dy| + |dx|."""
     dy, dx = image_gradients(image)

@@ -60,28 +60,29 @@ def extract_masks_multiclass(predictions: torch.Tensor, class_ids, mode: str = "
     (K, N, h, w, 1) max masks or None). The class-independent work (the
     argmax labels, the per-copy min/max, the top two logits) is done once;
     slice k equals ``extract_masks(predictions, class_ids[k], mode)``
-    exactly."""
+    exactly. Leading axes ride along: (B, N, h, w, C) logits of B images give
+    (B, K, N, h, w, 1) stacks."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     cls = torch.as_tensor(class_ids, dtype=torch.int64, device=predictions.device)
     per_class = cls[:, None, None, None, None]                     # (K, 1, 1, 1, 1)
 
     if mode == "argmax":
-        labels = torch.argmax(predictions, dim=-1, keepdim=True)[None]
+        labels = torch.argmax(predictions, dim=-1, keepdim=True).unsqueeze(-5)
         return torch.where(labels == per_class, labels, 0).to(torch.float32), None
 
-    # (N, h, w, K) -> (K, N, h, w, 1)
-    class_masks = predictions[..., cls].to(torch.float32).permute(3, 0, 1, 2)[..., None]
+    # (..., N, h, w, K) -> (..., K, N, h, w, 1)
+    class_masks = predictions[..., cls].to(torch.float32).movedim(-1, -4)[..., None]
     if mode == "slice":
-        gmin = predictions.amin(dim=(-3, -2, -1), keepdim=True)
-        gmax = predictions.amax(dim=(-3, -2, -1), keepdim=True)
+        gmin = predictions.amin(dim=(-3, -2, -1), keepdim=True).unsqueeze(-5)
+        gmax = predictions.amax(dim=(-3, -2, -1), keepdim=True).unsqueeze(-5)
         return min_max_normalization(class_masks, 0.0, 1.0,
                                      global_min=gmin, global_max=gmax), None
 
     # slice_max: the max over the other channels is the top logit unless the
     # class itself holds it, then the second (equal to the top on a tie).
     top2 = torch.topk(predictions, 2, dim=-1).values.to(torch.float32)
-    first, second = top2[..., :1][None], top2[..., 1:][None]
+    first, second = top2[..., :1].unsqueeze(-5), top2[..., 1:].unsqueeze(-5)
     max_masks = torch.where(class_masks == first, second, first)
     return class_masks, max_masks
 

@@ -35,7 +35,8 @@ def combine_label_map(targets: torch.Tensor, class_ids, th_factor: float,
                       rule: str = "class_peak", gate_th: float = 0.5) -> torch.Tensor:
     """Per-class SR targets (K, H, W, 1) -> one full-scene label map
     (H, W, 1): per pixel the best-scoring class if its score exceeds
-    th_factor, else background 0. The rule normalizes the scores:
+    th_factor, else background 0; (B, K, H, W, 1) targets of B images give
+    (B, H, W, 1) maps. The rule normalizes the scores:
 
       class_peak: each class by its own peak;
       scene_peak: every class by the joint peak;
@@ -47,7 +48,8 @@ def combine_label_map(targets: torch.Tensor, class_ids, th_factor: float,
         score = targets / torch.clamp_min(targets.amax(dim=(-3, -2, -1), keepdim=True),
                                           1e-12)
     elif rule == "scene_peak":
-        score = targets / torch.clamp_min(targets.max(), 1e-12)
+        joint = targets.amax(dim=(-4, -3, -2, -1), keepdim=True)
+        score = targets / torch.clamp_min(joint, 1e-12)
     elif rule == "raw":
         score = targets
     elif rule == "gated":
@@ -56,6 +58,6 @@ def combine_label_map(targets: torch.Tensor, class_ids, th_factor: float,
         score = present * targets / torch.clamp_min(peak, 1e-12)
     else:
         raise ValueError(f"unknown label_map rule {rule!r}")
-    best_score, best = torch.max(score, dim=0)
+    best_score, best = torch.max(score, dim=-4)
     cls = torch.as_tensor(class_ids, device=targets.device)
     return torch.where(best_score > th_factor, cls[best], 0)

@@ -248,14 +248,18 @@ def test_batched_class_solve_equals_single_solves():
 @pytest.fixture(scope="module")
 def step_case():
     """One image through the JAX asr_step_multiclass and the port's; and the
-    reference's one-class asr_step in slice_max mode on the same inputs. The
-    two JAX steps run as one jitted program, so XLA compiles their shared
-    warp and forward once. Both sides take the port's stencil (held against
-    the reference's at this decimation factor in test_torch_mobilenet),
-    which spares the reference an inline extraction in its compile."""
+    reference's one-class asr_step in slice_max mode on that image and a
+    second one, as the reference CLI's batched program runs it
+    (jax.vmap of asr_step over the images). The JAX steps run as one jitted
+    program, so XLA compiles their shared warp and forward once. Both sides
+    take the port's stencil (held against the reference's at this
+    decimation factor in test_torch_mobilenet), which spares the reference
+    an inline extraction in its compile."""
     params = j_init_params(JDeepLabConfig(**MODEL), seed=0)
     model = build_model(DeepLabConfig(**MODEL), params=params, device="cpu")
     image = np.random.default_rng(3).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    second = np.random.default_rng(23).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    images = np.stack([image, second])
     angles, shifts = _tta(4, 4)
     kw = dict(th_factor=0.2, sr_types=("aug", "max", "mean"), return_targets=True,
               return_label_map=True)
@@ -265,18 +269,20 @@ def step_case():
     cfgs = (JDeepLabConfig(**MODEL),
             JSRConfig(**STEP_SR, optimizer=JOptimizerConfig(**SERVING_OPT)))
 
-    def both(*arrays):
-        return (j_asr_step_multiclass(*arrays[:4], *cfgs, class_ids=CLASSES,
-                                      gram_coeffs=arrays[4], **kw),
-                j_asr_step(*arrays[:4], *cfgs, class_id=CLASSES[0],
-                           gram_coeffs=arrays[4], **SLICE_MAX))
+    def both(params, images, angles, shifts, coeffs):
+        return (j_asr_step_multiclass(params, images[0], angles, shifts, *cfgs,
+                                      class_ids=CLASSES, gram_coeffs=coeffs, **kw),
+                jax.vmap(lambda im: j_asr_step(params, im, angles, shifts, *cfgs,
+                                               class_id=CLASSES[0], gram_coeffs=coeffs,
+                                               **SLICE_MAX))(images))
 
     ref, ref_slice_max = jax.jit(both)(
-        params, jnp.asarray(image), jnp.asarray(angles), jnp.asarray(shifts),
+        params, jnp.asarray(images), jnp.asarray(angles), jnp.asarray(shifts),
         jnp.asarray(coeffs.numpy()))
     ours = asr_step_multiclass(model, torch.from_numpy(image), ta, ts, sr_cfg, CLASSES,
                                gram_coeffs=coeffs, **kw)
-    return dict(model=model, image=torch.from_numpy(image), angles=ta, shifts=ts,
+    return dict(model=model, image=torch.from_numpy(image),
+                images=torch.from_numpy(images), angles=ta, shifts=ts,
                 sr_cfg=sr_cfg, coeffs=coeffs, kw=kw,
                 ref={k: np.asarray(v) for k, v in ref.items()}, ours=ours,
                 ref_slice_max={k: np.asarray(v) for k, v in ref_slice_max.items()})
@@ -304,6 +310,21 @@ def test_asr_step_multiclass_matches_jax(step_case):
         assert float((ours["standard"][k] > 0).float().mean()) > 0.1
 
 
+def _check_slice_max(ours, ref, shape):
+    """The bounds of test_asr_step_matches_jax: masks agree on >= 99% of
+    pixels, targets within 5e-3."""
+    assert set(ours) == set(ref) == {"aug", "max", "mean", "standard", "aug_target",
+                                     "max_target", "mean_target"}
+    for key in ("aug", "max", "mean", "standard"):
+        assert ours[key].shape == shape
+        assert set(np.unique(ours[key].numpy())) <= {0.0, float(CLASSES[0])}
+        agree = float((ours[key].numpy() == ref[key]).mean())
+        assert agree >= 0.99, (key, agree)
+    for key in ("aug_target", "max_target", "mean_target"):
+        err = np.abs(ours[key].numpy() - ref[key]).max()
+        assert err <= 5e-3, (key, err)
+
+
 def test_asr_step_slice_max_matches_jax(step_case):
     """The one-class asr_step with aug, max and mean through slice_max, where
     a second stack (the max over the other classes' logits), warped and
@@ -311,20 +332,26 @@ def test_asr_step_slice_max_matches_jax(step_case):
     inputs, at the bounds of test_asr_step_matches_jax: masks agree on >= 99%
     of pixels, targets within 5e-3."""
     c = step_case
-    ref = c["ref_slice_max"]
+    ref = {k: v[0] for k, v in c["ref_slice_max"].items()}
     ours = asr_step(c["model"], c["image"], c["angles"], c["shifts"], c["sr_cfg"],
                     CLASSES[0], gram_coeffs=c["coeffs"], **SLICE_MAX)
-    assert set(ours) == set(ref) == {"aug", "max", "mean", "standard", "aug_target",
-                                     "max_target", "mean_target"}
-    for key in ("aug", "max", "mean", "standard"):
-        assert ours[key].shape == (64, 64, 1)
-        assert set(np.unique(ours[key].numpy())) <= {0.0, float(CLASSES[0])}
-        agree = float((ours[key].numpy() == ref[key]).mean())
-        assert agree >= 0.99, (key, agree)
+    _check_slice_max(ours, ref, (64, 64, 1))
     assert 0.05 < float((ours["aug"] > 0).float().mean()) < 0.95
-    for key in ("aug_target", "max_target", "mean_target"):
-        err = np.abs(ours[key].numpy() - ref[key]).max()
-        assert err <= 5e-3, (key, err)
+
+
+def test_asr_step_batch_matches_jax_vmap(step_case):
+    """Both images as one (2, 64, 64, 3) batch through the port's asr_step
+    (one copies warp and one forward for the 8 copies, b, the solve and the
+    inverse warp on 2 planes, each for the class and the max stack) against
+    the reference's jax.vmap of asr_step, aug + max + mean in slice_max
+    mode: every mask and target of each image, at the single step's
+    bounds."""
+    c = step_case
+    ours = asr_step(c["model"], c["images"], c["angles"], c["shifts"], c["sr_cfg"],
+                    CLASSES[0], gram_coeffs=c["coeffs"], **SLICE_MAX)
+    _check_slice_max(ours, c["ref_slice_max"], (2, 64, 64, 1))
+    for i in range(2):
+        assert 0.05 < float((ours["aug"][i] > 0).float().mean()) < 0.95
 
 
 def test_asr_step_multiclass_slices_match_asr_step(step_case):

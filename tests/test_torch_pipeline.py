@@ -6,6 +6,7 @@ and the PyTorch port (plain versions on the CPU). The port's ``serve`` and
 only parsed here (too slow for a CPU test).
 """
 
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -261,7 +262,9 @@ def test_save_img_roundtrip(tmp_path):
                                              normalize=False), mask)
 
 
-def _jax_run_asr_parser():
+@functools.lru_cache(maxsize=None)
+def _jax_run_asr():
+    """The JAX CLI's module (its parser and make_sr_config), loaded once."""
     cli_dir = os.path.join(REPO, "cli")
     sys.path.insert(0, cli_dir)
     try:
@@ -271,7 +274,11 @@ def _jax_run_asr_parser():
         spec.loader.exec_module(mod)
     finally:
         sys.path.remove(cli_dir)
-    return mod.parser
+    return mod
+
+
+def _jax_run_asr_parser():
+    return _jax_run_asr().parser
 
 
 def test_cli_flags_and_defaults_match_jax_cli():
@@ -293,8 +300,6 @@ def test_cli_flags_and_defaults_match_jax_cli():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--batch", "4"], ["--solver_impl", "cg"], ["--per_image_augs"], ["--fast"],
-    ["--copy_dropout", "0.1"], ["--sgd_copies", "25"], ["--optimizer", "sgd"],
     ["--warp_impl", "gather"], ["--operator_impl", "staged"],
     ["--profile_dir", "x"],
 ], ids=lambda f: " ".join(f))
@@ -303,6 +308,41 @@ def test_main_rejects_flags_outside_the_slice(flags, capsys):
         run_asr.main(["--images", SMOKE_IMG, *flags])
     assert exc.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def _jax_fast_preset(args):
+    """The JAX CLI's --fast preset, as its main() applies it (cli/run_asr.py,
+    right after parse_args); the port applies it in parse_args."""
+    args.num_iter = min(args.num_iter, 60)
+    args.learning_rate = max(args.learning_rate, 1e-2)
+    args.decay_steps = max(args.num_iter // 5, 1)
+    args.decay_rate = 0.1
+    args.sgd_copies = args.sgd_copies or 25
+
+
+@pytest.mark.parametrize("flags", [
+    ["--batch", "4"], ["--solver_impl", "cg"], ["--per_image_augs"], ["--fast"],
+    ["--copy_dropout", "0.1"], ["--sgd_copies", "25"], ["--optimizer", "sgd"],
+], ids=lambda f: " ".join(f))
+def test_parse_accepts_the_flags_this_slice_ports(flags):
+    """The flags that exited with "not ported yet" before this slice parse to
+    the JAX CLI's values, and make_sr_config turns them into the JAX CLI's
+    solver config, field for field (no model runs). --batch with
+    --per_image_augs exits with the JAX CLI's message."""
+    jax_cli = _jax_run_asr()
+    argv = ["--images", SMOKE_IMG, *flags]
+    args, jargs = run_asr.parse_args(argv), jax_cli.parser.parse_args(argv)
+    if jargs.fast:
+        _jax_fast_preset(jargs)
+    for key, value in vars(jargs).items():
+        if key not in ("output_dir", "cache_dir"):
+            assert getattr(args, key) == value, key
+    ours = run_asr.make_sr_config(args, num_aug=args.num_aug, angle_max=args.angle_max)
+    ref = jax_cli.make_sr_config(jargs, num_aug=jargs.num_aug, angle_max=jargs.angle_max)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    if flags[0] == "--batch":
+        with pytest.raises(SystemExit, match="--batch requires the fixed-TTA-set mode"):
+            run_asr.parse_args(argv + ["--per_image_augs"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,3 +395,41 @@ def test_main_runs_the_flags_this_slice_ports(flags, files, series, tmp_path,
     assert set(series) <= set(summary["ious"])
     # NaN where a class is in neither the GT nor the mask (as the JAX CLI)
     assert all(np.isnan(v) or 0.0 <= v <= 1.0 for v in summary["ious"].values())
+
+
+@pytest.mark.parametrize("flags, n_files, steps", [
+    (["--batch", "2"], 3, 2),
+    (["--per_image_augs"], 1, 1),
+    (["--fast", "--sgd_copies", "1"], 1, 1),
+], ids=["--batch 2", "--per_image_augs", "--fast"])
+def test_main_runs_batch_per_image_augs_and_fast(flags, n_files, steps, tmp_path,
+                                                 monkeypatch):
+    """main end to end with this slice's serving flags (64 px, f32, 2
+    copies): --batch 2 on three files (a ragged last batch), a fresh
+    augmentation set per image, and --fast (the minibatched direct solver,
+    here windows of 1 of the 2 copies). Every image gets its PNGs; the
+    summary names the batch and the loader (the native ring where it
+    builds)."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.data import native_loader
+
+    monkeypatch.setattr(run_asr, "IMG_SIZE", (64, 64))
+    monkeypatch.setattr(run_asr, "FEATURE_SIZES", {"xception": (16, 16),
+                                                   "mobilenet": (8, 8)})
+    monkeypatch.setattr(run_asr, "build_deeplab", _small_deeplab)
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    for i in range(n_files):
+        shutil.copy(SMOKE_IMG, in_dir / f"img{i}.jpg")
+    argv = ["--images", str(in_dir), "--num_aug", "2", "--num_iter", "3",
+            "--shift_max", "8", "--cache_dir", "", "--writer_threads", "2",
+            "--device", "cpu", "--output_dir", str(tmp_path / "out"), *flags]
+    summary = run_asr.main(argv)
+    assert (summary["n_images"], summary["steps"]) == (n_files, steps)
+    assert summary["batch"] == (2 if "--batch" in flags else 0)
+    assert summary["loader"] == ("native ring" if native_loader.available()
+                                 else "python lookahead")
+    for i in range(n_files):
+        for key in ("aug", "standard"):
+            mask = load_image(str(tmp_path / "out" / f"img{i}_{key}.png"), is_png=True,
+                              normalize=False)
+            assert mask.shape == (64, 64, 1) and set(np.unique(mask)) <= {0.0, 8.0}

@@ -39,6 +39,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     SRConfig,
     augmented_superresolution,
     load_stencil,
+    make_optimizer as make_port_optimizer,
     save_stencil,
     stencil_cache_key,
     threshold_image,
@@ -90,7 +91,12 @@ def test_optimizer_matches_optax_over_300_steps(opt_kw):
 
 
 def test_optimizer_rejects_unported_names():
-    with pytest.raises(NotImplementedError, match="sgd"):
+    """Every name of the reference is ported (test_torch_solvers holds each
+    against optax); an unknown name raises, and so does a config whose name
+    is not the class's."""
+    with pytest.raises(ValueError, match="rmsprop"):
+        make_port_optimizer(OptimizerConfig(name="rmsprop"), torch.zeros(3))
+    with pytest.raises(ValueError, match="sgd"):
         Adam(OptimizerConfig(name="sgd"), torch.zeros(3))
 
 
@@ -174,10 +180,10 @@ def test_gram_solve_matches_jax():
     err = np.abs(ours.numpy() - np.asarray(ref))
     assert err.max() <= 5e-3 and err.mean() <= 1e-4, (err.max(), err.mean())
     np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="direct and CG"):
+    with pytest.raises(ValueError, match="solver_impl"):
         augmented_superresolution(torch.from_numpy(masks), torch.from_numpy(angles),
                                   torch.from_numpy(shifts),
-                                  dataclasses.replace(cfg, solver_impl="cg"))
+                                  dataclasses.replace(cfg, solver_impl="newton"))
 
 
 def test_stencil_cache_is_tagged_and_roundtrips(tmp_path):
