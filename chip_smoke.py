@@ -1,4 +1,4 @@
-"""On-card smoke run of the PyTorch/CUDA port's serving path.
+"""On-card smoke run of the PyTorch/CUDA port: its serving and training paths.
 
     python3 chip_smoke.py [--seed 0] [--images 6] [--stage-trace]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
@@ -31,7 +31,20 @@ order, each phase raising on failure:
      --stage-trace, also a torch.profiler window around the stages
      ``warp`` and ``b`` of two more images: device kernels and device time
      of each;
-  5. each kernel vs its plain version at the serving paths' shapes and
+  5. training: ``cli.train`` at full width (Xception OS16, bf16, adam 1e-3,
+     batch 8, random init from its seed, synthetic scenes), as a user runs
+     it (no synchronisation inside a chunk of steps; the losses fetched once
+     per chunk): ``train`` (the CLI's default, 128 px), ``train-warp-512``
+     (512 px with ``--warp_augment``: 4 shear_rows + 2 shear_cols launches
+     a step, asserted), ``train-remat-512`` (the same with ``--remat``);
+     each reports the steady seconds per step and images per second over
+     the steps after the first chunk, the first step, the peak memory, the
+     losses (finite and falling) and its launches, then a torch.profiler
+     window over three more steps (device time a step, the idle share, the
+     kernels that take it). Then ``train-then-serve``: the warp run's
+     checkpoint resumes for one step, and its saved params serve one image
+     through ``cli.run_asr.serve`` (``--weights_path``);
+  6. each kernel vs its plain version at the serving paths' shapes and
      layouts (contiguous, stride-0 and class-major input: the copies warp
      of one image or of a batch of 4, the fused operator at features 128
      and 64 with one, 4 or 20 target planes and on 25-copy windows, the
@@ -43,19 +56,24 @@ order, each phase raising on failure:
      A case that moves less than ROTATE_BYTES is timed on a ring of inputs
      and outputs that together exceed the card's L2, so that its time is
      one of memory, not of the cache;
-  6. small-input end-to-end checks, each on the card against the same call
+     The training layouts are there too: a batch of 8 images (3 planes each,
+     its own shifts) and of 8 label maps (integer shifts: the nearest mode,
+     held exactly), at 128 and 512 px;
+  7. small-input end-to-end checks, each on the card against the same call
      on the CPU (the plain versions): ``asr_step`` with aug, max and mean;
      ``asr_step_multiclass`` of 3 classes with the label map, unchunked and
      in class groups of 2, and of a batch of 2 images; MobileNetV2;
      ``asr_step`` with the IRLS-CG solver and with the direct solver on
-     copy minibatches.
+     copy minibatches; one train step of MobileNetV2 (alpha 0.35, 32 px,
+     f32) and ``warp_augment_batch`` with given draws.
 
 Before any of it, a line says whether the native decode ring
 (``data/native_loader.py``, host decode) builds on this machine; the script
 serves decoded arrays and needs no ring.
 
-The serving paths run before the kernel cases and the CPU checks, so that
-neither leaves load on the card or the host while a path is timed.
+The serving and training paths run before the kernel cases and the CPU
+checks, and training after serving, so that no phase leaves load on the
+card or the host while a path is timed.
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX
 package.
@@ -90,6 +108,26 @@ STENCIL_RTOL = 2.5e-4
 # agree on >= 99% of pixels and the continuous SR target to 1e-2.
 E2E_MASK_AGREE = 0.99
 E2E_TARGET_ATOL = 1e-2
+# Training (cli.train, Xception bf16 adam 1e-3): the batch, the sizes (the
+# CLI's default and the quality demo's), steps and chunk (--log_every) of each
+# timed run, its synthetic set (--train_set, --eval_images; cut at 512 px,
+# where the host draws each scene in numpy) and the steps of the profiled
+# window.
+TRAIN_BATCH = 8
+TRAIN_SIZES = (128, 512)
+TRAIN_STEPS, TRAIN_CHUNK = 25, 5
+REMAT_STEPS = 15
+TRAIN_SET = {128: 128, 512: 32}
+TRAIN_EVAL_IMAGES = {128: 16, 512: 8}
+PROFILE_STEPS = 3
+# Card vs CPU, one train step (tests/test_torch_train.py's start and
+# tolerances): sgd at lr 1e-5 from the initial params with every BN's gamma
+# from U(0.25, 0.5) and beta from +-U(1, 2), where the gradient is well
+# conditioned. The loss 1e-5 relative; moving statistics 1e-5 absolute +
+# 1e-5 relative; the other parameters 1e-6 absolute; sgd's momentum trace
+# (the gradient) per leaf to 1% of the leaf's largest value + 1e-4 of the
+# whole trace's.
+TRAIN_CHECK_LR = 1e-5
 # Images of the synchronised per-stage profile that follows the serving run.
 PROFILE_IMAGES = 4
 # Images of the 20-class and the MobileNetV2 serving paths, and the class
@@ -206,8 +244,9 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_cases(device, angles, shifts):
-    """(name, kernel, shape, dtype, s, layout, primary) for every layout in
-    which the serving paths reach a kernel, plus the edge probes. layout:
+    """(name, kernel, shape, dtype, s, layout, primary, exact) for every layout
+    in which the serving and training paths reach a kernel, plus the edge
+    probes; exact: integer shifts (the nearest mode), held bit for bit. layout:
     "dense"; "stride0", every copy reads the same planes (stride 0 over the
     copies); "class_major", the (N, K, H, W) view of a (K, N, H, W) stack, as
     the inverse warp reads the upsampled class masks."""
@@ -234,72 +273,99 @@ def kernel_cases(device, angles, shifts):
     ramp = torch.linspace(-1.0, 1.0, 128, device=device)
     probe = torch.stack([ramp + 240.25, ramp - 239.5])
     bf16, f32 = torch.bfloat16, torch.float32
+    train_cases = _train_kernel_cases(device, paeth_coefficients, pass_shifts)
     return [
         ("copies warp x pass 3 (100,3,512,512) bf16", "shear_rows",
-         (100, 3, 512, 512), bf16, s_c3, "dense", True),
+         (100, 3, 512, 512), bf16, s_c3, "dense", True, False),
         ("copies warp x pass 1 (100,3,512,512) bf16 from one stride-0 image",
-         "shear_rows", (100, 3, 512, 512), bf16, s_a, "stride0", False),
+         "shear_rows", (100, 3, 512, 512), bf16, s_a, "stride0", False, False),
         ("fused pass A backward (100,512,512) f32", "shear_rows",
-         (100, 512, 512), f32, s_a, "dense", False),
+         (100, 512, 512), f32, s_a, "dense", False, False),
         ("fused pass A (100,512,512) f32 from one stride-0 plane", "shear_rows",
-         (100, 512, 512), f32, s_a, "stride0", False),
+         (100, 512, 512), f32, s_a, "stride0", False, False),
         ("fused pass C (100,128,512) f32", "shear_rows", (100, 128, 512), f32, s_c,
-         "dense", False),
+         "dense", False, False),
         ("fused pass C at feature 64 (MobileNetV2) (100,64,512) f32", "shear_rows",
-         (100, 64, 512), f32, s_c64, "dense", False),
+         (100, 64, 512), f32, s_c64, "dense", False, False),
         ("fused pass A, 20 target planes (b of 20 classes) (100,20,512,512) f32 "
          "from stride-0 planes", "shear_rows", (100, 20, 512, 512), f32, s_a,
-         "stride0", False),
+         "stride0", False, False),
         ("fused pass C, 20 planes (100,20,128,512) f32", "shear_rows",
-         (100, 20, 128, 512), f32, s_c, "dense", False),
+         (100, 20, 128, 512), f32, s_c, "dense", False, False),
         ("inverse warp x pass 1 (100,1,512,512) f32", "shear_rows",
-         (100, 1, 512, 512), f32, si_a, "dense", False),
+         (100, 1, 512, 512), f32, si_a, "dense", False, False),
         ("inverse warp x pass 3 (100,1,512,512) f32", "shear_rows",
-         (100, 1, 512, 512), f32, si_c, "dense", False),
+         (100, 1, 512, 512), f32, si_c, "dense", False, False),
         ("inverse warp x pass 1, 20 class planes (100,20,512,512) f32, class-major",
-         "shear_rows", (100, 20, 512, 512), f32, si_a, "class_major", False),
+         "shear_rows", (100, 20, 512, 512), f32, si_a, "class_major", False, False),
         ("inverse warp x pass 3, 20 class planes (100,20,512,512) f32", "shear_rows",
-         (100, 20, 512, 512), f32, si_c, "dense", False),
+         (100, 20, 512, 512), f32, si_c, "dense", False, False),
         ("budget probe +-240 (2,128,512) f32", "shear_rows", (2, 128, 512), f32, probe,
-         "dense", False),
+         "dense", False, False),
         # --batch 4: the copies warp of 4 images (12 planes), b on 4 planes
         ("copies warp x pass 1, batch of 4 (100,12,512,512) bf16 from 4 stride-0 "
-         "images", "shear_rows", (100, 12, 512, 512), bf16, s_a, "stride0", False),
+         "images", "shear_rows", (100, 12, 512, 512), bf16, s_a, "stride0", False, False),
         ("copies warp x pass 3, batch of 4 (100,12,512,512) bf16", "shear_rows",
-         (100, 12, 512, 512), bf16, s_c3, "dense", False),
+         (100, 12, 512, 512), bf16, s_c3, "dense", False, False),
         ("fused pass A, batch of 4 (100,4,512,512) f32 from 4 stride-0 planes",
-         "shear_rows", (100, 4, 512, 512), f32, s_a, "stride0", False),
+         "shear_rows", (100, 4, 512, 512), f32, s_a, "stride0", False, False),
         ("fused pass A backward, batch of 4 (100,4,512,512) f32", "shear_rows",
-         (100, 4, 512, 512), f32, s_a, "dense", False),
+         (100, 4, 512, 512), f32, s_a, "dense", False, False),
         ("fused pass C, batch of 4 (100,4,128,512) f32", "shear_rows",
-         (100, 4, 128, 512), f32, s_c, "dense", False),
+         (100, 4, 128, 512), f32, s_c, "dense", False, False),
         # --fast: the direct solver's operator on 25-copy windows
         ("direct solver pass A (25,512,512) f32 from one stride-0 plane",
-         "shear_rows", (25, 512, 512), f32, s_a[:25], "stride0", False),
+         "shear_rows", (25, 512, 512), f32, s_a[:25], "stride0", False, False),
         ("direct solver pass A backward (25,512,512) f32", "shear_rows",
-         (25, 512, 512), f32, s_a[:25], "dense", False),
+         (25, 512, 512), f32, s_a[:25], "dense", False, False),
         ("direct solver pass C (25,128,512) f32", "shear_rows", (25, 128, 512), f32,
-         s_c[:25], "dense", False),
+         s_c[:25], "dense", False, False),
         ("copies warp y pass (100,3,512,512) bf16", "shear_cols",
-         (100, 3, 512, 512), bf16, s_b, "dense", True),
+         (100, 3, 512, 512), bf16, s_b, "dense", True, False),
         ("fused pass B (100,512,512) f32", "shear_cols", (100, 512, 512), f32, s_b,
-         "dense", False),
+         "dense", False, False),
         ("inverse warp y pass (100,1,512,512) f32", "shear_cols", (100, 1, 512, 512),
-         f32, si_b, "dense", False),
+         f32, si_b, "dense", False, False),
         ("inverse warp y pass, 20 class planes (100,20,512,512) f32 (also fused "
          "pass B of 20 planes)", "shear_cols", (100, 20, 512, 512), f32, si_b,
-         "dense", False),
+         "dense", False, False),
         ("copies warp y pass, batch of 4 (100,12,512,512) bf16", "shear_cols",
-         (100, 12, 512, 512), bf16, s_b, "dense", False),
+         (100, 12, 512, 512), bf16, s_b, "dense", False, False),
         ("fused pass B, batch of 4 (100,4,512,512) f32", "shear_cols",
-         (100, 4, 512, 512), f32, s_b, "dense", False),
+         (100, 4, 512, 512), f32, s_b, "dense", False, False),
         ("direct solver pass B (25,512,512) f32", "shear_cols", (25, 512, 512), f32,
-         s_b[:25], "dense", False),
+         s_b[:25], "dense", False, False),
         ("edge probe +-240 (2,512,128) f32", "shear_cols", (2, 512, 128), f32, probe,
-         "dense", False),
+         "dense", False, False),
         ("edge probe +-240 (2,3,512,128) bf16", "shear_cols", (2, 3, 512, 128), bf16,
-         probe, "dense", False),
-    ]
+         probe, "dense", False, False),
+    ] + train_cases
+
+
+def _train_kernel_cases(device, paeth_coefficients, pass_shifts):
+    """warp_augment_batch's layouts: TRAIN_BATCH images of 3 planes and as many
+    label maps of 1 plane, contiguous, each sample its own angle and shift
+    (all taken), at the training sizes; labels with the nearest mode's
+    integer shifts."""
+    cases = []
+    gen = torch.Generator().manual_seed(5)
+    for size in TRAIN_SIZES:
+        angles = ((torch.rand(TRAIN_BATCH, generator=gen) * 2 - 1) * 0.15).to(device)
+        shifts = ((torch.rand((TRAIN_BATCH, 2), generator=gen) * 2 - 1)
+                  * (80.0 * size / 512)).to(device)
+        a, off_a, b, off_b, _ = paeth_coefficients(angles, shifts, size, size)
+        centre = (size - 1) / 2.0
+        for planes, mode in ((3, "bilinear"), (1, "nearest")):
+            what = "images" if planes == 3 else "labels, nearest"
+            shape = (TRAIN_BATCH, planes, size, size)
+            exact = mode == "nearest"
+            cases.append((f"train warp x pass, {what} {shape} f32", "shear_rows", shape,
+                          torch.float32, pass_shifts(a, off_a, centre, size, mode),
+                          "dense", False, exact))
+            cases.append((f"train warp y pass, {what} {shape} f32", "shear_cols", shape,
+                          torch.float32, pass_shifts(b, off_b, centre, size, mode),
+                          "dense", False, exact))
+    return cases
 
 
 def library_call(kernel: str, x: torch.Tensor, s: torch.Tensor):
@@ -337,7 +403,7 @@ def phase_kernel(device, angles, shifts):
                               shear_warp.shear_cols_dispatch)}
     gen = torch.Generator(device=device).manual_seed(0)
     results = []
-    for name, kernel, shape, dtype, s, layout, primary in kernel_cases(
+    for name, kernel, shape, dtype, s, layout, primary, exact in kernel_cases(
             device, angles, shifts):
         launch, plain, dispatch = kernels[kernel]
         s = s.contiguous()
@@ -364,7 +430,10 @@ def phase_kernel(device, angles, shifts):
         for kern, inp, shift in ((got, x, s), (got_bwd, g, -s)):
             ref32 = plain(inp.float(), shift)
             err = (kern.float() - ref32).abs()
-            if dtype == torch.bfloat16:
+            if exact:
+                bad = err > 0
+                errs.append(float(err.max()))
+            elif dtype == torch.bfloat16:
                 bad = err > bf16_ulp(ref32)
                 errs.append(float((kern.float() - plain(inp, shift).float())
                                   .abs().max()))
@@ -396,6 +465,7 @@ def phase_kernel(device, angles, shifts):
         torch.cuda.empty_cache()
         results.append({
             "case": name, "kernel": kernel, "primary": primary, "layout": layout,
+            "exact": exact,
             "ring": copies,
             "fwd_err": errs[0], "bwd_err": errs[1], "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -852,6 +922,291 @@ def phase_serve_mobilenet(device, images, coeffs, sr_cfg):
     return result
 
 
+TRAIN_DIR = "build/chip_smoke_train"
+
+
+def train_args(size: int, steps: int, *extra: str):
+    """cli.train's arguments for a timed run at ``size``: the CLI's defaults
+    (Xception, bf16, adam 1e-3, batch 8) on the card."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import parse_args
+
+    return parse_args([
+        "--size", str(size), "--steps", str(steps), "--log_every", str(TRAIN_CHUNK),
+        "--batch", str(TRAIN_BATCH), "--train_set", str(TRAIN_SET[size]),
+        "--eval_images", str(TRAIN_EVAL_IMAGES[size]), "--save_params", "",
+        "--device", "cuda", *extra])
+
+
+def train_path(label, device, args, warp: bool):
+    """One training run as a user runs it (cli.train's ``train``): no
+    synchronisation inside a chunk, the chunk's losses fetched at its end.
+    The launch counts are set to 0 just before and read just after: 4
+    shear_rows + 2 shear_cols a step with --warp_augment (the images' warp
+    and the labels'), none without. Steady s/step over the steps after the
+    first chunk; peak memory is this run's own."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import train
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        WARP_LAUNCHES)
+
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    for counter in counters.values():
+        counter.launches = 0
+    summary, timing = train(args)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    (first_done, first_t), (last_done, last_t) = timing["chunk_ends"][0], \
+        timing["chunk_ends"][-1]
+    per_step = (last_t - first_t) / (last_done - first_done)
+    losses = summary["losses"]
+    steps = summary["total_steps"] - summary["start_step"]
+    expected = {name: (2 * WARP_LAUNCHES[name] if warp else 0) for name in counters}
+    log(f"[{label}] {args.backbone} {args.size} px, batch {args.batch}, "
+        f"{args.compute_dtype}, remat {args.remat}: {steps} steps, first step "
+        f"{timing['first_step_s']:.3f}s, steady {per_step:.4f} s/step "
+        f"({args.batch / per_step:.1f} images/s) over steps {first_done + 1}-{last_done}, "
+        f"peak memory {peak / 2**30:.2f} GiB, loss first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}, held-out mIoU {summary['held_out_miou']:.4f}")
+    log(f"[{label}] kernel launches {json.dumps(launches)} over {steps} steps, "
+        f"expected per step {json.dumps(expected)}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"[{label}] losses not finite: {losses}")
+    if not np.mean(losses[-TRAIN_CHUNK:]) < np.mean(losses[:TRAIN_CHUNK]):
+        raise AssertionError(f"[{label}] the loss did not fall: {losses}")
+    for name, count in launches.items():
+        if count != expected[name] * steps:
+            raise AssertionError(f"[{label}] {count} {name} launches, expected "
+                                 f"{expected[name] * steps}")
+    return {"launches": launches, "steps": steps, "launches_per_step": expected,
+            "peak_bytes": peak, "first_step_s": timing["first_step_s"],
+            "steady_s_per_step": per_step, "images_per_s": args.batch / per_step,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "held_out_miou": summary["held_out_miou"]}
+
+
+KERNEL_GROUPS = (("shear kernels", ("shear_",)),
+                 ("depthwise convolutions", ("conv_depthwise",)),
+                 ("dense convolutions and matmuls",
+                  ("xmma", "cudnn", "cutlass", "gemm", "conv", "nhwc", "nchw")),
+                 ("reductions (BN statistics, loss, norms)", ("reduce_kernel",)),
+                 ("elementwise", ("elementwise", "index", "copy", "fill", "cat")))
+
+
+def kernel_group(name: str) -> str:
+    lowered = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(key in lowered for key in keys):
+            return group
+    return "other"
+
+
+def profile_train_step(label, device, args, steady_s_per_step: float):
+    """A torch.profiler window over PROFILE_STEPS train steps of ``args``'s
+    configuration (after two warm-up steps): the device time a step, by
+    kernel group, and the idle share against the unprofiled run's steady
+    step (the profiler's own host cost would inflate a profiled step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
+        DeepLabConfig, init_params, params_from_jax)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.deeplab import DeepLab
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.optim import (
+        make_optimizer)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.train import (
+        MasterParams, make_train_step)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+        warp_augment_batch)
+
+    cfg = DeepLabConfig(input_shape=(args.size, args.size, 3), weights=None,
+                        final_upsample=True, compute_dtype=args.compute_dtype)
+    master = MasterParams(params_from_jax(init_params(cfg, seed=args.seed)), device)
+    tx = make_optimizer(args)
+    opt_state = tx.init(master)
+    step = make_train_step(DeepLab(cfg, device="meta"), tx, remat=args.remat,
+                           skip_nonfinite=args.skip_nonfinite)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    images = torch.rand((args.batch, args.size, args.size, 3), generator=gen,
+                        device=device)
+    labels = torch.randint(0, 21, (args.batch, args.size, args.size), generator=gen,
+                           device=device, dtype=torch.uint8)
+
+    def one_step():
+        im, lb = images, labels
+        if args.warp_augment:
+            im, lb = warp_augment_batch(gen, im, lb, args.warp_angle_max,
+                                        80.0 * args.size / 512)
+        return step(master, opt_state, im, lb)[2]
+
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            loss = one_step()
+        float(loss)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_card:
+        raise AssertionError(f"[{label}-profile] no device activity traced")
+    groups = {}
+    for e in on_card:
+        group = kernel_group(e.name)
+        groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+    busy = sum(groups.values())
+    idle = max(0.0, 1.0 - busy / (steady_s_per_step * 1e3))
+    log(f"[{label}-profile] device busy {busy:.1f} ms a step "
+        f"({len(on_card) / PROFILE_STEPS:.0f} device activities), idle share "
+        f"{idle:.1%} of the unprofiled {steady_s_per_step * 1e3:.1f} ms step; by kernel "
+        "group (ms a step): " + "; ".join(
+            f"{group} {ms:.2f}" for group, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    return {"device_ms_per_step": busy, "idle_share": idle,
+            "device_activities_per_step": len(on_card) / PROFILE_STEPS,
+            "device_ms_by_group": groups}
+
+
+def phase_train(device, images, coeffs, sr_cfg):
+    """cli.train at full width: the CLI's default (128 px), 512 px with
+    --warp_augment, the same with --remat; then the warp run's checkpoint
+    resumed for a step and its saved params served (train, then serve)."""
+    import os
+    import shutil
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+        build_deeplab, serve)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import train
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        WARP_LAUNCHES)
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    ckpt_dir = os.path.join(TRAIN_DIR, "ckpt")
+    saved = os.path.join(TRAIN_DIR, "trained_params.npz")
+    paths = {}
+    args = train_args(128, TRAIN_STEPS)
+    paths["train"] = train_path("train", device, args, warp=False)
+    paths["train"].update(profile_train_step(
+        "train", device, args, paths["train"]["steady_s_per_step"]))
+    args = train_args(512, TRAIN_STEPS, "--warp_augment", "--ckpt_dir", ckpt_dir,
+                      "--ckpt_every", str(TRAIN_STEPS), "--save_params", saved)
+    paths["train-warp-512"] = train_path("train-warp-512", device, args, warp=True)
+    paths["train-warp-512"].update(profile_train_step(
+        "train-warp-512", device, args, paths["train-warp-512"]["steady_s_per_step"]))
+    args = train_args(512, REMAT_STEPS, "--warp_augment", "--remat")
+    paths["train-remat-512"] = train_path("train-remat-512", device, args, warp=True)
+    log(f"[train-remat-512] peak {paths['train-remat-512']['peak_bytes'] / 2**30:.2f} GiB "
+        f"with --remat against {paths['train-warp-512']['peak_bytes'] / 2**30:.2f} GiB "
+        f"without; {paths['train-remat-512']['steady_s_per_step']:.4f} against "
+        f"{paths['train-warp-512']['steady_s_per_step']:.4f} s/step")
+
+    # Train, then serve: resume one step from the warp run's checkpoint, then
+    # serve an image with its saved params, as run_asr --weights_path does.
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    resumed, _ = train(train_args(512, 1, "--warp_augment", "--resume",
+                                  os.path.join(ckpt_dir, f"step_{TRAIN_STEPS}.npz")))
+    if (resumed["start_step"], resumed["total_steps"]) != (TRAIN_STEPS, TRAIN_STEPS + 1) \
+            or not np.isfinite(resumed["loss_final"]):
+        raise AssertionError(f"[train-then-serve] resume went wrong: {resumed}")
+    model = build_deeplab("xception", weights_path=saved, device=device)
+    summary = serve(images[:1], model, sr_cfg, device=device, gram_coeffs=coeffs,
+                    class_id=8, writer_threads=0)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    fractions = next(iter(summary["mask_fractions"].values()))
+    per_image = expected_launches(("aug",))
+    expected = {name: 2 * WARP_LAUNCHES[name] + per_image[name] for name in counters}
+    log(f"[train-then-serve] resumed at step {resumed['start_step']} for one step "
+        f"(loss {resumed['loss_final']:.4f}); served {summary['n_images']} image with "
+        f"the saved params: mask fractions {json.dumps(fractions)}; launches "
+        f"{json.dumps(launches)} (one train step with the warp, then one image)")
+    if summary["n_images"] != 1 or not all(0.0 <= v <= 1.0 for v in fractions.values()):
+        raise AssertionError("[train-then-serve] the trained params did not serve")
+    if launches != expected:
+        raise AssertionError(f"[train-then-serve] launches {launches}, expected {expected}")
+    paths["train-then-serve"] = {"launches": launches, "resumed_loss": resumed["loss_final"]}
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_train_small(device):
+    """One train step of MobileNetV2 (alpha 0.35, 32 px, f32, sgd with
+    Nesterov momentum, the non-finite guard on) and warp_augment_batch with
+    given draws, on the card against the same calls on the CPU."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
+        DeepLabConfig, init_params, params_from_jax)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.deeplab import DeepLab
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.optim import (
+        Schedule, TrainOptimizer)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.train import (
+        MasterParams, make_train_step)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.weights import (
+        to_reference_layout)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+        warp_augment_batch_with_draws)
+
+    cfg = DeepLabConfig(input_shape=(32, 32, 3), backbone="mobilenet", alpha=0.35,
+                        weights=None, final_upsample=True, compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, 21, (2, 32, 32)).astype(np.int32)
+    labels[:, :3] = 255
+    draws = (rng.uniform(-0.15, 0.15, 2).astype(np.float32),
+             rng.uniform(-5, 5, (2, 2)).astype(np.float32), np.array([1.0, 0.0], np.float32))
+    start = init_params(cfg, seed=0)
+    rng = np.random.default_rng(7)
+    for entry in start.values():
+        if "gamma" in entry:
+            n = entry["gamma"].shape
+            entry["gamma"] = rng.uniform(0.25, 0.5, n).astype(np.float32)
+            entry["beta"] = (rng.choice([-1.0, 1.0], n)
+                             * rng.uniform(1.0, 2.0, n)).astype(np.float32)
+    outs = {}
+    for dev in (torch.device("cpu"), device):
+        master = MasterParams(params_from_jax(start), dev)
+        tx = TrainOptimizer("sgd", Schedule("constant", TRAIN_CHECK_LR), momentum=0.9)
+        step = make_train_step(DeepLab(cfg, device="meta"), tx, skip_nonfinite=True)
+        _, opt_state, loss = step(master, tx.init(master), torch.as_tensor(images, device=dev),
+                                  torch.as_tensor(labels, device=dev))
+        trace = {(layer, name): to_reference_layout(name, view.numpy()) for (layer, name), view
+                 in zip(master.keys, master.leaves(opt_state.tensors["trace"].cpu()))}
+        img, lab = warp_augment_batch_with_draws(
+            torch.as_tensor(images, device=dev), torch.as_tensor(labels, device=dev),
+            *(torch.as_tensor(d, device=dev) for d in draws))
+        outs[dev.type] = (float(loss), master.numpy_params(), trace, img.cpu(), lab.cpu())
+    (l_cpu, p_cpu, t_cpu, i_cpu, b_cpu), (l_gpu, p_gpu, t_gpu, i_gpu, b_gpu) = (
+        outs["cpu"], outs["cuda"])
+    scale = max(float(np.abs(g).max()) for g in t_cpu.values())
+    worst_param, worst_stat, worst_grad, worst_leaf, failed = 0.0, 0.0, 0.0, "", []
+    for layer, entry in p_cpu.items():
+        for name, want in entry.items():
+            err = float(np.abs(p_gpu[layer][name] - want).max())
+            if name.startswith("moving"):
+                worst_stat = max(worst_stat, err)
+                if err > 1e-5 + 1e-5 * np.abs(want).max():
+                    failed.append(f"{layer}/{name} {err:.3g}")
+                continue
+            worst_param = max(worst_param, err)
+            g = t_cpu[layer, name]
+            share = float(np.abs(t_gpu[layer, name] - g).max()
+                          / (1e-2 * np.abs(g).max() + 1e-4 * scale))
+            if share > worst_grad:
+                worst_grad, worst_leaf = share, f"{layer}/{name}"
+            if err > 1e-6 or share > 1:
+                failed.append(f"{layer}/{name} param {err:.3g}, gradient {share:.2f} of its bound")
+    img_err = float((i_gpu - i_cpu).abs().max())
+    log(f"[train-small] MobileNetV2 32 px f32 train step, card vs CPU: loss {l_gpu:.7f} "
+        f"vs {l_cpu:.7f}, parameters max err {worst_param:.3g}, the gradient's worst leaf "
+        f"{worst_leaf} at {worst_grad:.3f} of its bound, moving statistics max err "
+        f"{worst_stat:.3g}; warp_augment_batch images max err {img_err:.3g}, labels equal "
+        f"{bool(torch.equal(b_gpu, b_cpu))}")
+    if (failed or abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu) or img_err > ATOL_F32
+            or not torch.equal(b_gpu, b_cpu)):
+        raise AssertionError(f"[train-small] card and CPU disagree: {failed[:5]}")
+
+
 def check_target(model, device, image, class_id, coeffs, sr_cfg, angles, shifts):
     """The continuous SR target of one full-size image is finite, (512, 512, 1)."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
@@ -925,8 +1280,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["serve-mobilenet"] = phase_serve_mobilenet(
         device, images[:MOBILENET_IMAGES], mob_coeffs, mob_sr_cfg)
+    paths.update(phase_train(device, images, coeffs, sr_cfg))
     kernel_results = phase_kernel(device, angles, shifts)
     phase_small_e2e(device)
+    phase_train_small(device)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     entries = []
@@ -942,7 +1299,7 @@ def main() -> None:
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "ms_case": main_case["case"],
             "per_case": cases})
-    log("[done] serving paths " + json.dumps(
+    log("[done] serving and training paths " + json.dumps(
         {label: {k: v for k, v in p.items() if k != "launches"}
          for label, p in paths.items()}))
     print(json.dumps({"kernels": entries}))

@@ -10,7 +10,9 @@ relies on to reproduce the reference's random init.
 
 The public forward takes and returns NHWC like the reference,
 (B, H, W, 3) -> (B, h, w, classes) float32 logits; inside, the network runs
-NCHW (a permuted NHWC tensor, i.e. channels-last memory).
+NCHW (a permuted NHWC tensor, i.e. channels-last memory). ``forward_train``
+runs the same modules in training mode (``layers.BatchStatStore``): weights
+from a dict of f32 master tensors, batch-statistics BatchNorm.
 """
 
 import dataclasses
@@ -21,8 +23,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_hw
-from .layers import (BatchNorm, Conv2d, DepthwiseConv2d, KerasLayer, SepConvBN, Spec,
-                     conv2d_same, global_average_pool, make_divisible, relu6)
+from .layers import (BatchNorm, BatchStatStore, Conv2d, DepthwiseConv2d, KerasLayer,
+                     SepConvBN, Spec, conv2d_same, global_average_pool, make_divisible,
+                     relu, relu6, segment)
+
+Store = Optional[BatchStatStore]
+BNStats = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,16 +100,16 @@ class XceptionBlock(nn.Module):
             self.shortcut_bn = BatchNorm(prefix + "_shortcut_BN", filters[-1],
                                          device=device)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, store: Store = None):
         """Returns (output, the second separable conv's output)."""
         residual = x
         skip = None
         for i, conv in enumerate(self.convs):
-            residual = conv(residual)
+            residual = conv(residual, store)
             if i == 1:
                 skip = residual
         if self.skip_type == "conv":
-            return residual + self.shortcut_bn(self.shortcut(x)), skip
+            return residual + self.shortcut_bn(self.shortcut(x, store), store), skip
         if self.skip_type == "sum":
             return residual + x, skip
         return residual, skip
@@ -135,16 +141,16 @@ class XceptionBackbone(nn.Module):
                                    None, 1, rate=exit_rates[1],
                                    depth_activation=True, **kw)
 
-    def forward(self, x: torch.Tensor):
-        x = F.relu(self.bn1_1(self.conv1_1(x)))
-        x = F.relu(self.bn1_2(self.conv1_2(x)))
-        x, _ = self.block1(x)
-        x, skip = self.block2(x)
-        x, _ = self.block3(x)
+    def forward(self, x: torch.Tensor, store: Store = None):
+        x = relu(self.bn1_1(self.conv1_1(x, store), store))
+        x = relu(self.bn1_2(self.conv1_2(x, store), store))
+        x, _ = segment(self.block1, store, x)
+        x, skip = segment(self.block2, store, x)
+        x, _ = segment(self.block3, store, x)
         for block in self.middle:
-            x, _ = block(x)
-        x, _ = self.exit1(x)
-        x, _ = self.exit2(x)
+            x, _ = segment(block, store, x)
+        x, _ = segment(self.exit1, store, x)
+        x, _ = segment(self.exit2, store, x)
         return x, skip
 
 
@@ -169,10 +175,10 @@ class InvertedResBlock(nn.Module):
         self.project = Conv2d(prefix + "project", hidden, self.out_ch, 1, **kw)
         self.project_bn = BatchNorm(prefix + "project_BN", self.out_ch, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = relu6(self.expand_bn(self.expand(x)))
-        y = relu6(self.depthwise_bn(self.depthwise(y)))
-        y = self.project_bn(self.project(y))
+    def forward(self, x: torch.Tensor, store: Store = None) -> torch.Tensor:
+        y = relu6(self.expand_bn(self.expand(x, store), store))
+        y = relu6(self.depthwise_bn(self.depthwise(y, store), store))
+        y = self.project_bn(self.project(y, store), store)
         return x + y if self.skip else y
 
 
@@ -212,12 +218,12 @@ class MobileNetBackbone(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.out_ch = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = relu6(self.conv_bn(self.conv(x)))
-        x = relu6(self.depthwise_bn(self.depthwise(x)))
-        x = self.project_bn(self.project(x))
+    def forward(self, x: torch.Tensor, store: Store = None) -> torch.Tensor:
+        x = relu6(self.conv_bn(self.conv(x, store), store))
+        x = relu6(self.depthwise_bn(self.depthwise(x, store), store))
+        x = self.project_bn(self.project(x, store), store)
         for block in self.blocks:
-            x = block(x)
+            x = segment(block, store, x)
         return x
 
 
@@ -239,13 +245,14 @@ class ASPP(nn.Module):
         self.projection_bn = BatchNorm("concat_projection_BN", 256, 1e-5,
                                        device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pool = F.relu(self.pool_bn(self.pool_conv(global_average_pool(x))))
+    def forward(self, x: torch.Tensor, store: Store = None) -> torch.Tensor:
+        pool = self.pool_conv(global_average_pool(x), store)
+        pool = relu(self.pool_bn(pool, store))
         pool = resize_hw(pool, x.shape[-2:], "bilinear").to(x.dtype)
-        b0 = F.relu(self.aspp0_bn(self.aspp0(x)))
-        branches = [pool, b0] + [conv(x) for conv in self.atrous]
-        out = self.projection(torch.cat(branches, dim=1))
-        return F.relu(self.projection_bn(out))
+        b0 = relu(self.aspp0_bn(self.aspp0(x, store), store))
+        branches = [pool, b0] + [conv(x, store) for conv in self.atrous]
+        out = self.projection(torch.cat(branches, dim=1), store)
+        return relu(self.projection_bn(out, store))
 
 
 class Decoder(nn.Module):
@@ -269,18 +276,19 @@ class Decoder(nn.Module):
         self.conv1 = SepConvBN("decoder_conv1", 256, 256, depth_activation=True,
                                epsilon=1e-5, **kw)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor],
+                store: Store = None) -> torch.Tensor:
         """x: the ASPP output (standard, only_ASPP) or the backbone output
         (only_DCNN); skip: the low-level features (standard only)."""
         if self.variant == "standard":
             x = resize_hw(x, skip.shape[-2:], "bilinear").to(skip.dtype)
-            dec_skip = F.relu(self.projection_bn(self.projection(skip)))
+            dec_skip = relu(self.projection_bn(self.projection(skip, store), store))
             x = torch.cat([x, dec_skip], dim=1)
         else:
             if self.variant == "only_dcnn":
-                x = F.relu(self.projection_bn(self.projection(x)))
+                x = relu(self.projection_bn(self.projection(x, store), store))
             x = resize_hw(x, self.upsample_size, "bilinear").to(x.dtype)
-        return self.conv1(self.conv0(x))
+        return self.conv1(self.conv0(x, store), store)
 
 
 class DeepLab(nn.Module):
@@ -327,19 +335,25 @@ class DeepLab(nn.Module):
             layer.load(params[layer.keras_name])
         return self
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, store: Store = None) -> torch.Tensor:
         cfg = self.cfg
         x = image.to(cfg.dtype).permute(0, 3, 1, 2)
         if self.decoder is None:
-            out = self.aspp(self.backbone(x))
+            out = segment(self.aspp, store, self.backbone(x, store))
         else:
-            encoder_out, skip = self.backbone(x)
-            if self.decoder.variant == "only_dcnn":  # the ASPP output is unused
-                out = self.decoder(encoder_out, None)
+            encoder_out, skip = self.backbone(x, store)
+            if self.decoder.variant == "only_dcnn":
+                # The ASPP output is unused; in training the reference still
+                # runs it, so its BN layers record batch statistics (and
+                # their moving statistics move).
+                if store is not None:
+                    segment(self.aspp, store, encoder_out)
+                out = segment(self.decoder, store, encoder_out, None)
             else:
-                out = self.decoder(self.aspp(encoder_out), skip)
+                out = segment(self.decoder, store, segment(self.aspp, store, encoder_out),
+                              skip)
         if self.head is not None:
-            out = self.head(out)
+            out = self.head(out, store)
         out = out.float()
         if cfg.final_upsample:
             out = resize_hw(out, cfg.input_shape[:2], "bilinear")
@@ -351,3 +365,17 @@ class DeepLab(nn.Module):
         elif cfg.last_activation == "sigmoid":
             out = torch.sigmoid(out)
         return out
+
+    def forward_train(self, image: torch.Tensor,
+                      params: Dict[str, Dict[str, torch.Tensor]], remat: bool = False
+                      ) -> Tuple[torch.Tensor, BNStats]:
+        """The forward in training mode: weights from ``params`` (f32 master
+        tensors keyed like ``weights.params_from_jax``'s dict), cast to the
+        compute dtype in the graph; batch-statistics BatchNorm. Returns
+        (logits, bn_batch_stats), the latter mapping each BN layer's name to
+        its batch (mean, var). The module's own buffers are not read, so a
+        model built on the "meta" device serves. remat=True checkpoints each
+        block of the backbone, ASPP and the decoder (``layers.segment``):
+        the same numbers, activations recomputed in the backward."""
+        store = BatchStatStore(params, remat=remat)
+        return self.forward(image, store), store.bn_batch_stats

@@ -7,8 +7,17 @@ weights in the reference's layout and order (``specs``), so
 checkpoints by name.
 
 Numerics follow the reference: a convolution runs in the compute dtype and
-returns that dtype; BatchNorm is inference-only, folded to an f32
-scale/shift applied in f32, then cast back (precision-sensitive under bf16).
+returns that dtype; BatchNorm is folded to an f32 scale/shift applied in f32,
+then cast back (precision-sensitive under bf16).
+
+Two modes share this one module tree. Serving (``store=None``, the default)
+reads the weights loaded into the modules' buffers: bf16 OIHW kernels, BN
+folded. Training passes a ``BatchStatStore`` down the forward: each layer
+reads its weights from the store's dict of f32 master tensors (Keras-named,
+the port's layout) and casts them to the compute dtype inside the autograd
+graph, as the reference's ``kernel.astype(x.dtype)``; BatchNorm normalises
+with the batch's statistics and records them (the reference's
+``ParamStore(bn_mode="batch")``).
 """
 
 from typing import Dict, Iterator, Optional, Tuple, Union
@@ -40,6 +49,39 @@ def _tf_same(size: int, effective: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+class BatchStatStore:
+    """Training mode of the forward: ``params`` maps Keras layer name ->
+    weight name -> f32 master tensor (port layout); BatchNorm records each
+    layer's batch (mean, biased variance), f32, in ``bn_batch_stats``.
+
+    remat=True runs each segment (a block of the backbone, ASPP, the
+    decoder; ``segment``) under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward pass instead of kept. The recomputation
+    records its statistics into a store of its own that is thrown away, so
+    each layer's statistics are recorded once, from the forward pass."""
+
+    def __init__(self, params: Dict[str, Dict[str, torch.Tensor]], remat: bool = False):
+        self.params = params
+        self.remat = remat
+        self.bn_batch_stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def segment(module: nn.Module, store: Optional[BatchStatStore], *args):
+    """``module(*args, store)``; with a remat store, as one checkpointed
+    segment (its statistics merged into ``store`` from the forward pass)."""
+    if store is None or not store.remat:
+        return module(*args, store)
+    from torch.utils.checkpoint import checkpoint
+
+    def run(*inputs):
+        own = BatchStatStore(store.params)
+        return module(*inputs, own), own.bn_batch_stats
+
+    out, stats = checkpoint(run, *args, use_reentrant=False)
+    store.bn_batch_stats.update(stats)
+    return out
+
+
 class KerasLayer(nn.Module):
     """A layer whose weights live under one Keras layer name."""
 
@@ -63,7 +105,7 @@ class _ConvBase(KerasLayer):
         self.padding = padding
         self.groups = groups
 
-    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         if self.padding == "SAME":
             eff = self.kernel_size + (self.kernel_size - 1) * (self.rate - 1)
             pads = (_tf_same(x.shape[-2], eff, self.stride),
@@ -72,11 +114,10 @@ class _ConvBase(KerasLayer):
             pads = self.padding
         (top, bottom), (left, right) = pads
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, None, self.stride, (top, left),
+            return F.conv2d(x, weight, None, self.stride, (top, left),
                             self.rate, self.groups)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, None, self.stride, 0, self.rate,
-                        self.groups)
+        return F.conv2d(x, weight, None, self.stride, 0, self.rate, self.groups)
 
 
 class Conv2d(_ConvBase):
@@ -103,10 +144,16 @@ class Conv2d(_ConvBase):
         if self.use_bias:
             self.bias.copy_(entry["bias"])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._conv(x)
+    def forward(self, x: torch.Tensor,
+                store: Optional[BatchStatStore] = None) -> torch.Tensor:
+        if store is None:
+            weight, bias = self.weight, getattr(self, "bias", None)
+        else:
+            entry = store.params[self.keras_name]
+            weight, bias = entry["kernel"].to(x.dtype), entry.get("bias")
+        y = self._conv(x, weight)
         if self.use_bias:
-            y = (y.float() + self.bias[:, None, None]).to(x.dtype)
+            y = (y.float() + bias[:, None, None]).to(x.dtype)
         return y
 
 
@@ -128,12 +175,17 @@ class DepthwiseConv2d(_ConvBase):
     def load(self, entry: Dict[str, torch.Tensor]) -> None:
         self.weight.copy_(entry["depthwise_kernel"])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv(x)
+    def forward(self, x: torch.Tensor,
+                store: Optional[BatchStatStore] = None) -> torch.Tensor:
+        if store is None:
+            return self._conv(x, self.weight)
+        return self._conv(x, store.params[self.keras_name]["depthwise_kernel"]
+                          .to(x.dtype))
 
 
 class BatchNorm(KerasLayer):
-    """Inference BatchNorm folded to an f32 scale and shift."""
+    """Inference BatchNorm folded to an f32 scale and shift; with a store,
+    batch-statistics BatchNorm (training)."""
 
     def __init__(self, name: str, channels: int, epsilon: float = 1e-3, *,
                  device=None):
@@ -158,8 +210,29 @@ class BatchNorm(KerasLayer):
         self.scale.copy_(scale[:, None, None])
         self.shift.copy_((beta - mean * scale)[:, None, None])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.addcmul(self.shift, x.float(), self.scale).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                store: Optional[BatchStatStore] = None) -> torch.Tensor:
+        if store is None:
+            return torch.addcmul(self.shift, x.float(), self.scale).to(x.dtype)
+        return self._batch_stat_forward(x, store)
+
+    def _batch_stat_forward(self, x: torch.Tensor, store: BatchStatStore) -> torch.Tensor:
+        """The reference's batch mode: the batch's mean and biased variance
+        over (N, H, W) in f32 whatever the compute dtype, scale =
+        gamma / sqrt(var + eps) and shift = beta - mean * scale applied in
+        f32, cast back to the input dtype; (mean, var) recorded. The same
+        operations in the same order (a product, then a sum), not cuDNN's
+        batch norm nor a fused multiply-add: the gradient at init is
+        sensitive to rounding (ReLU inputs within rounding of 0 flip), and
+        the reference's own arithmetic keeps the port closest to it
+        (tests/test_torch_train.py)."""
+        entry = store.params[self.keras_name]
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        store.bn_batch_stats[self.keras_name] = (mean.detach(), var.detach())
+        scale = entry["gamma"] / torch.sqrt(var + self.epsilon)
+        shift = entry["beta"] - mean * scale
+        return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 class SepConvBN(nn.Module):
@@ -188,15 +261,16 @@ class SepConvBN(nn.Module):
         self.pointwise_bn = BatchNorm(prefix + "_pointwise_BN", filters, epsilon,
                                       device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                store: Optional[BatchStatStore] = None) -> torch.Tensor:
         if not self.depth_activation:
-            x = F.relu(x)
-        x = self.depthwise_bn(self.depthwise(x))
+            x = relu(x)
+        x = self.depthwise_bn(self.depthwise(x, store), store)
         if self.depth_activation:
-            x = F.relu(x)
-        x = self.pointwise_bn(self.pointwise(x))
+            x = relu(x)
+        x = self.pointwise_bn(self.pointwise(x, store), store)
         if self.depth_activation:
-            x = F.relu(x)
+            x = relu(x)
         return x
 
 
@@ -218,7 +292,23 @@ def global_average_pool(x: torch.Tensor) -> torch.Tensor:
     return x.float().mean(dim=(-2, -1), keepdim=True).to(x.dtype)
 
 
+# 0-d CPU constants: binary ops take them beside a tensor on any device.
+_ZERO, _SIX = torch.tensor(0.0), torch.tensor(6.0)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0), with the reference's derivative at 0: jax's maximum gives
+    1/2 at a tie (torch.relu 0), and ties are common in training, where a
+    dead channel normalises to exactly beta = 0 at init. ``torch.maximum``
+    splits a tie the same way."""
+    return torch.maximum(x, _ZERO)
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
+    """clip(x, 0, 6). Under autograd, with the reference's derivative (jax's
+    clip: 1/2 at 0 and at 6; torch.clamp: 1)."""
+    if x.requires_grad:
+        return torch.minimum(torch.maximum(x, _ZERO), _SIX)
     return torch.clamp(x, 0, 6)
 
 

@@ -4,7 +4,9 @@ Port of the JAX package's ``models/weights.py`` plus its ``init_params``.
 Parameters travel as the reference's flat dict, Keras layer name -> weight
 name -> numpy array in the reference's layout (HWIO kernels, (k, k, 1, C)
 depthwise kernels). ``params_from_jax`` converts such a dict into the
-port's tensors, ``DeepLab.load_params`` loads them.
+port's tensors, ``DeepLab.load_params`` loads them; ``to_reference_layout``
+converts one port tensor back (checkpoints are written in the reference's
+layout).
 """
 
 import os
@@ -53,19 +55,28 @@ def init_params(cfg: DeepLabConfig, seed: int = 0) -> NumpyParams:
     return params
 
 
+KERNEL_NAMES = ("kernel", "depthwise_kernel")
+
+
+def from_reference_layout(name: str, arr: np.ndarray) -> np.ndarray:
+    """One weight in the reference's layout -> the port's: HWIO kernels
+    become OIHW, depthwise (k, k, 1, C) kernels (C, 1, k, k)."""
+    return arr.transpose(3, 2, 0, 1) if name in KERNEL_NAMES else arr
+
+
+def to_reference_layout(name: str, arr: np.ndarray) -> np.ndarray:
+    """The inverse of ``from_reference_layout``."""
+    return arr.transpose(2, 3, 1, 0) if name in KERNEL_NAMES else arr
+
+
 def params_from_jax(params) -> TorchParams:
     """Reference-layout dict (numpy or anything np.asarray takes) -> float32
-    CPU tensors in the port's layout: HWIO kernels become OIHW, depthwise
-    (k, k, 1, C) kernels become (C, 1, k, k)."""
+    CPU tensors in the port's layout (``from_reference_layout``)."""
     out: TorchParams = {}
     for layer, weights in params.items():
-        entry = {}
-        for name, value in weights.items():
-            arr = np.asarray(value, np.float32)
-            if name in ("kernel", "depthwise_kernel"):
-                arr = arr.transpose(3, 2, 0, 1)
-            entry[name] = torch.tensor(np.ascontiguousarray(arr))
-        out[layer] = entry
+        out[layer] = {name: torch.tensor(np.ascontiguousarray(
+            from_reference_layout(name, np.asarray(value, np.float32))))
+            for name, value in weights.items()}
     return out
 
 
@@ -143,12 +154,13 @@ def load_params_npz(path: str) -> NumpyParams:
     return params
 
 
-def build_model(cfg: DeepLabConfig, seed: int = 0,
-                params: Optional[NumpyParams] = None,
-                weights_path: Optional[str] = None, *, device) -> DeepLab:
-    """The DeepLab module on ``device`` with random-init (seed), given, .npz
-    or Keras .h5 parameters -- the counterpart of the reference's
-    ``build_model``. Evaluation mode, channels-last memory."""
+def resolve_params(cfg: DeepLabConfig, seed: int = 0,
+                   params: Optional[NumpyParams] = None,
+                   weights_path: Optional[str] = None) -> NumpyParams:
+    """The parameters the reference's ``build_model`` returns: random init
+    (seed) or the given dict, replaced by an .npz (own format; the head's
+    name follows the config) or filled from a Keras .h5 when cfg.weights is
+    "pascal_voc"."""
     if params is None:
         params = init_params(cfg, seed=seed)
     if weights_path is not None and weights_path.endswith(".npz"):
@@ -157,8 +169,18 @@ def build_model(cfg: DeepLabConfig, seed: int = 0,
         for other in ("logits_semantic", "custom_logits_semantic"):
             if other != want and other in loaded and want not in loaded:
                 loaded[want] = loaded.pop(other)
-        params = loaded
-    elif cfg.weights == "pascal_voc" and weights_path is not None:
-        params = load_keras_h5_weights(params, weights_path)
+        return loaded
+    if cfg.weights == "pascal_voc" and weights_path is not None:
+        return load_keras_h5_weights(params, weights_path)
+    return params
+
+
+def build_model(cfg: DeepLabConfig, seed: int = 0,
+                params: Optional[NumpyParams] = None,
+                weights_path: Optional[str] = None, *, device) -> DeepLab:
+    """The DeepLab module on ``device`` with random-init (seed), given, .npz
+    or Keras .h5 parameters (``resolve_params``) -- the counterpart of the
+    reference's ``build_model``. Evaluation mode, channels-last memory."""
+    params = resolve_params(cfg, seed, params, weights_path)
     model = DeepLab(cfg, device=device).load_params(params_from_jax(params))
     return model.eval().to(memory_format=torch.channels_last)

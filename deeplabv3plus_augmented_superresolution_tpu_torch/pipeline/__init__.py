@@ -1,5 +1,7 @@
-from .augment import make_augmented_copies, sample_augmentations
+from .augment import (make_augmented_copies, sample_augmentations, sample_warp_draws,
+                      warp_augment_batch, warp_augment_batch_with_draws)
 from .end_to_end import asr_step, asr_step_multiclass
 
-__all__ = ["make_augmented_copies", "sample_augmentations", "asr_step",
+__all__ = ["make_augmented_copies", "sample_augmentations", "sample_warp_draws",
+           "warp_augment_batch", "warp_augment_batch_with_draws", "asr_step",
            "asr_step_multiclass"]

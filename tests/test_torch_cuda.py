@@ -323,3 +323,110 @@ def test_asr_step_multiclass_launches_on_card(cuda_device, class_chunk):
         outs[dev.type] = {k: v.cpu() for k, v in out.items()}
     for key in ("aug", "max", "mean", "standard", "label_map"):
         assert float((outs["cpu"][key] == outs["cuda"][key]).float().mean()) >= 0.99
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("size", [32, 128])
+def test_warp_augment_layouts_on_card(cuda_device, size):
+    """The training layouts: a batch of 8 images (3 planes each, each sample
+    its own angle and shift) and of 8 label maps through the nearest mode,
+    on the card against the CPU: images 1e-5, labels (255 contours, the
+    zero border) exactly; 4 shear_rows + 2 shear_cols launches."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+        warp_augment_batch_with_draws)
+
+    rng = np.random.default_rng(31)
+    images = torch.from_numpy(rng.uniform(0, 1, (8, size, size, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 21, (8, size, size)).astype(np.uint8))
+    labels[:, size // 3] = 255
+    draws = [torch.from_numpy(d) for d in (
+        rng.uniform(-0.15, 0.15, 8).astype(np.float32),
+        rng.uniform(-size / 6, size / 6, (8, 2)).astype(np.float32),
+        (rng.uniform(0, 1, 8) < 0.5).astype(np.float32))]
+    cpu = warp_augment_batch_with_draws(images, labels, *draws)
+    before = _launches()
+    card = warp_augment_batch_with_draws(images.to(cuda_device), labels.to(cuda_device),
+                                         *(d.to(cuda_device) for d in draws))
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _launches().items()} == {
+        k: 2 * v for k, v in WARP_LAUNCHES.items()}
+    assert float((card[0].cpu() - cpu[0]).abs().max()) <= 1e-5
+    assert card[1].dtype == torch.uint8 and torch.equal(card[1].cpu(), cpu[1])
+
+
+def _conditioned_start(cfg):
+    """tests/test_torch_train.py's start for one train step, where its
+    gradient is well conditioned: the initial params with every
+    BatchNorm's gamma drawn from U(0.25, 0.5) and beta from +-U(1, 2)."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models import init_params
+
+    params = init_params(cfg, seed=0)
+    rng = np.random.default_rng(7)
+    for entry in params.values():
+        if "gamma" in entry:
+            n = entry["gamma"].shape
+            entry["gamma"] = rng.uniform(0.25, 0.5, n).astype(np.float32)
+            entry["beta"] = (rng.choice([-1.0, 1.0], n)
+                             * rng.uniform(1.0, 2.0, n)).astype(np.float32)
+    return params
+
+
+@pytest.mark.requires_cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One train step of MobileNetV2 (alpha 0.35, 32 px, f32, sgd with
+    Nesterov momentum at 1e-5, the non-finite guard on) on the card against
+    the CPU, and the same step with remat on the card against the plain one
+    (cuDNN's backward may sum in another order from run to run), from
+    tests/test_torch_train.py's conditioned start with its tolerances."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models import params_from_jax
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.deeplab import DeepLab
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.optim import (
+        Schedule, TrainOptimizer)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.train import (
+        MasterParams, make_train_step)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models.weights import (
+        to_reference_layout)
+
+    cfg = DeepLabConfig(input_shape=(32, 32, 3), backbone="mobilenet", alpha=0.35,
+                        weights=None, final_upsample=True, compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 21, (2, 32, 32)).astype(np.int32))
+    labels[:, :3] = 255
+    start = _conditioned_start(cfg)
+    outs = {}
+    for dev, remat in ((torch.device("cpu"), False), (cuda_device, False),
+                       (cuda_device, True)):
+        master = MasterParams(params_from_jax(start), dev)
+        tx = TrainOptimizer("sgd", Schedule("constant", 1e-5), momentum=0.9)
+        step = make_train_step(DeepLab(cfg, device="meta"), tx, remat=remat,
+                               skip_nonfinite=True)
+        _, opt_state, loss = step(master, tx.init(master), images.to(dev), labels.to(dev))
+        trace = {}
+        for (layer, name), view in zip(master.keys,
+                                       master.leaves(opt_state.tensors["trace"].cpu())):
+            trace.setdefault(layer, {})[name] = to_reference_layout(name, view.numpy())
+        outs[(dev.type, remat)] = (float(loss), master.numpy_params(), trace)
+    for ref, other in ((("cpu", False), ("cuda", False)), (("cuda", False), ("cuda", True))):
+        (l_ref, p_ref, t_ref), (l_other, p_other, t_other) = outs[ref], outs[other]
+        assert l_other == pytest.approx(l_ref, rel=1e-5)
+        _assert_step_close(p_other, t_other, p_ref, t_ref)
+
+
+def _assert_step_close(got_params, got_trace, want_params, want_trace):
+    """tests/test_torch_train.py's train-step tolerances: the moving
+    statistics 1e-5 absolute + 1e-5 relative; the other parameters 1e-6
+    absolute; sgd's momentum trace (the step's gradient) per leaf to 1% of
+    that leaf's largest value + 1e-4 of the whole trace's."""
+    scale = max(float(np.abs(v).max()) for e in want_trace.values() for v in e.values())
+    for layer, entry in want_params.items():
+        for name, w in entry.items():
+            err = np.abs(got_params[layer][name] - w).max()
+            if name.startswith("moving"):
+                assert err <= 1e-5 + 1e-5 * np.abs(w).max(), (layer, name, err)
+                continue
+            assert err <= 1e-6, (layer, name, err)
+            g = want_trace[layer][name]
+            err = np.abs(got_trace[layer][name] - g).max()
+            assert err <= 1e-2 * np.abs(g).max() + 1e-4 * scale, (
+                layer, name, err, np.abs(g).max())
