@@ -1,4 +1,5 @@
-"""On-card smoke run of the PyTorch/CUDA port: its serving and training paths.
+"""On-card smoke run of the PyTorch/CUDA port: its serving, training and
+evaluation paths.
 
     python3 chip_smoke.py [--seed 0] [--images 6] [--stage-trace]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
@@ -44,7 +45,21 @@ order, each phase raising on failure:
      kernels that take it). Then ``train-then-serve``: the warp run's
      checkpoint resumes for one step, and its saved params serve one image
      through ``cli.run_asr.serve`` (``--weights_path``);
-  6. each kernel vs its plain version at the serving paths' shapes and
+  6. the evaluation workflow at full width (Xception OS16, bf16, 512 px,
+     100 copies, 300 AMSGrad steps, random weights from seed 0) on
+     synthetic scenes holding class 8, each path with its launches (counted
+     from 0 for it) and peak memory: ``[staged]``, generate_augmented_copies'
+     core on EVAL_IMAGES scenes in every OPM mode with one shared set, the
+     forward in one batch and in chunks of EVAL_CHUNK copies, held against
+     each other; ``[standard]``, generate_standard_output's core (the full
+     model, x4 upsample); ``[sr-eval]``, SR_single_class's core over the
+     staged stacks (load_sr_data's normalization, the shared set's stencil
+     extracted once, aug/max/mean and six IoUs), then ``[threshold]``,
+     threshold_tests' core (one solve, 17 thresholds); ``[robustness]``,
+     check_robustness' core on ROBUST_IMAGES scenes in one batch over 27
+     combinations, its nearest-warped labels held bit for bit against the
+     plain path's;
+  7. each kernel vs its plain version at the serving paths' shapes and
      layouts (contiguous, stride-0 and class-major input: the copies warp
      of one image or of a batch of 4, the fused operator at features 128
      and 64 with one, 4 or 20 target planes and on 25-copy windows, the
@@ -58,22 +73,25 @@ order, each phase raising on failure:
      one of memory, not of the cache;
      The training layouts are there too: a batch of 8 images (3 planes each,
      its own shifts) and of 8 label maps (integer shifts: the nearest mode,
-     held exactly), at 128 and 512 px;
-  7. small-input end-to-end checks, each on the card against the same call
+     held exactly), at 128 and 512 px; and the robustness grid's: 16 images
+     of 3 planes and 16 label maps sharing one combination's shifts;
+  8. small-input end-to-end checks, each on the card against the same call
      on the CPU (the plain versions): ``asr_step`` with aug, max and mean;
      ``asr_step_multiclass`` of 3 classes with the label map, unchunked and
      in class groups of 2, and of a batch of 2 images; MobileNetV2;
      ``asr_step`` with the IRLS-CG solver and with the direct solver on
      copy minibatches; one train step of MobileNetV2 (alpha 0.35, 32 px,
-     f32) and ``warp_augment_batch`` with given draws.
+     f32) and ``warp_augment_batch`` with given draws; the evaluation
+     cores (staging in every mode, standard masks, score_image,
+     threshold_ious, robustness_grid) at 64 px.
 
 Before any of it, a line says whether the native decode ring
 (``data/native_loader.py``, host decode) builds on this machine; the script
 serves decoded arrays and needs no ring.
 
-The serving and training paths run before the kernel cases and the CPU
-checks, and training after serving, so that no phase leaves load on the
-card or the host while a path is timed.
+The serving, training and evaluation paths run before the kernel cases and
+the CPU checks, in that order, so that no phase leaves load on the card or
+the host while a path is timed.
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX
 package.
@@ -141,6 +159,29 @@ BATCH = 4
 BATCH_IMAGES = 9
 PER_IMAGE_IMAGES = 3
 FAST_IMAGES = 4
+# The evaluation workflow (the reference's staged runs) on synthetic scenes
+# with class 8 in each: EVAL_IMAGES staged in every OPM mode, with the
+# forward in one batch and in chunks of EVAL_CHUNK copies; the robustness
+# grid's ROBUST_IMAGES images (one batch, the CLI's default) over
+# ROBUST_ANGLES x ROBUST_SHIFTS^2 = 27 combinations.
+EVAL_CLASS = 8
+EVAL_SIZE = 512
+EVAL_NUM_AUG = 100
+EVAL_IMAGES = 4
+EVAL_MODES = ("argmax", "slice", "slice_max")
+EVAL_CHUNK = 25
+ROBUST_IMAGES = 16
+ROBUST_ANGLES = (-0.35, 0.0, 0.35)
+ROBUST_SHIFTS = (-80.0, 0.0, 80.0)
+# A forward in chunks of copies against one forward of all: bf16 rounds each
+# layer and cuDNN may pick other algorithms for the smaller batch, so argmax
+# masks must agree on >= E2E_MASK_AGREE of pixels and continuous stacks
+# within BF16_STACK_RTOL of their largest magnitude (the bf16 forward's bound
+# in tests/test_torch_model.py and tests/test_torch_mobilenet.py).
+BF16_STACK_RTOL = 0.05
+# Card vs CPU, the evaluation cores at 64 px in f32: IoUs to 1e-3, raw logit
+# stacks to 1e-2 of their scale (random-init logits are ~1e-6).
+EVAL_IOU_ATOL = 1e-3
 # Length of the spin kernel ahead of each timing window (about 2 ms at the
 # card's clock): long enough for the host to enqueue the window behind it.
 SPIN_CYCLES = 4_000_000
@@ -274,6 +315,7 @@ def kernel_cases(device, angles, shifts):
     probe = torch.stack([ramp + 240.25, ramp - 239.5])
     bf16, f32 = torch.bfloat16, torch.float32
     train_cases = _train_kernel_cases(device, paeth_coefficients, pass_shifts)
+    robustness_cases = _robustness_kernel_cases(device, paeth_coefficients, pass_shifts)
     return [
         ("copies warp x pass 3 (100,3,512,512) bf16", "shear_rows",
          (100, 3, 512, 512), bf16, s_c3, "dense", True, False),
@@ -339,7 +381,30 @@ def kernel_cases(device, angles, shifts):
          "dense", False, False),
         ("edge probe +-240 (2,3,512,128) bf16", "shear_cols", (2, 3, 512, 128), bf16,
          probe, "dense", False, False),
-    ] + train_cases
+    ] + train_cases + robustness_cases
+
+
+def _robustness_kernel_cases(device, paeth_coefficients, pass_shifts):
+    """check_robustness' layouts: ROBUST_IMAGES different images of 3 planes
+    and their label maps of 1 plane, the whole batch sharing one
+    combination's angle and shift (the grid's corner); labels with the
+    nearest mode's integer shifts."""
+    n = ROBUST_IMAGES
+    angles = torch.full((n,), ROBUST_ANGLES[-1], device=device)
+    shifts = torch.tensor([ROBUST_SHIFTS[-1], ROBUST_SHIFTS[0]], device=device).expand(n, 2)
+    a, off_a, b, off_b, _ = paeth_coefficients(angles, shifts, 512, 512)
+    cases = []
+    for planes, mode in ((3, "bilinear"), (1, "nearest")):
+        what = "images" if planes == 3 else "labels, nearest"
+        shape = (n, planes, 512, 512)
+        exact = mode == "nearest"
+        cases.append((f"robustness warp x pass, {what} {shape} f32", "shear_rows", shape,
+                      torch.float32, pass_shifts(a, off_a, 255.5, 512, mode), "dense",
+                      False, exact))
+        cases.append((f"robustness warp y pass, {what} {shape} f32", "shear_cols", shape,
+                      torch.float32, pass_shifts(b, off_b, 255.5, 512, mode), "dense",
+                      False, exact))
+    return cases
 
 
 def _train_kernel_cases(device, paeth_coefficients, pass_shifts):
@@ -812,7 +877,7 @@ def phase_serve_new_paths(device, model, images, coeffs, sr_cfg, class_id, angle
     per step and a synchronised profile; and the full-size targets of one
     batch are finite."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
-        FEATURE_SIZES, make_sr_config, parse_args)
+        make_sr_config, parse_args)
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import (
         RADIUS_X, RADIUS_Y)
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
@@ -847,9 +912,7 @@ def phase_serve_new_paths(device, model, images, coeffs, sr_cfg, class_id, angle
                  class_id=class_id, per_image_augs=True)
 
     args = parse_args(["--images", "unused.jpg", "--fast"])
-    fast_cfg = make_sr_config(args, num_aug=args.num_aug,
-                              feature_size=FEATURE_SIZES["xception"],
-                              angle_max=args.angle_max)
+    fast_cfg = make_sr_config(args, num_aug=args.num_aug, angle_max=args.angle_max)
     log(f"[serve-fast] preset: {fast_cfg.num_iter} steps, lr "
         f"{fast_cfg.optimizer.learning_rate}, decay {fast_cfg.optimizer.decay_rate} "
         f"per {fast_cfg.optimizer.decay_steps} steps, windows of "
@@ -1207,6 +1270,400 @@ def phase_train_small(device):
         raise AssertionError(f"[train-small] card and CPU disagree: {failed[:5]}")
 
 
+class LaunchWindow:
+    """The launch counts of one path (set to 0 on entry, read on exit) and
+    its peak device memory."""
+
+    def __init__(self, device):
+        self.device = device
+        self.counters = launch_counters()
+        self.launches = {}
+        self.peak = 0
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(self.device)
+        for counter in self.counters.values():
+            counter.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.launches = {name: c.launches for name, c in self.counters.items()}
+        self.peak = torch.cuda.max_memory_allocated(self.device)
+        return False
+
+    def check(self, label, expected):
+        log(f"[{label}] kernel launches {json.dumps(self.launches)}, expected "
+            f"{json.dumps(expected)}; peak memory {self.peak / 2**30:.2f} GiB")
+        for name, count in self.launches.items():
+            if count != expected[name]:
+                raise AssertionError(f"[{label}] {count} {name} launches, expected "
+                                     f"{expected[name]}")
+
+
+def eval_scenes(seed: int, n: int):
+    """n synthetic EVAL_SIZE-px scenes that hold class EVAL_CLASS
+    (data/synthetic.py): names, (n, H, W, 3) float32 images in [0, 1] and
+    (n, H, W, 1) float32 labels with 255 on the shapes' contours."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.data.synthetic import (
+        synthetic_batch)
+
+    images, labels = synthetic_batch(np.random.default_rng(seed), n,
+                                     size=(EVAL_SIZE, EVAL_SIZE), require_class=EVAL_CLASS)
+    return ([f"scene{i:02d}" for i in range(n)], images,
+            labels[..., None].astype(np.float32))
+
+
+def _steady(seconds):
+    """Mean seconds after the first call (which pays first-use work)."""
+    return float(np.mean(seconds[1:])) if len(seconds) > 1 else float(seconds[0])
+
+
+def phase_staged(device, names, images):
+    """generate_augmented_copies' core (``stage_feature_maps``) at the CLI's
+    defaults with --shared_tta: Xception OS16 bf16, 100 copies, angles to
+    0.3, shifts to 30 px, in every OPM mode, the forward in one batch and in
+    chunks of EVAL_CHUNK copies (each image synchronised, as the CLI fetches
+    its masks to write them). The chunked stacks are held against the
+    unchunked ones; one copies warp (2 + 1 launches) per staging."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli import (
+        generate_augmented_copies)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli._common import (
+        SEED, build_deeplab, feature_size_of)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        WARP_LAUNCHES)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline.feature_maps import (
+        stage_feature_maps)
+
+    args = generate_augmented_copies.build_parser().parse_args(
+        ["--class_id", str(EVAL_CLASS), "--num_aug", str(EVAL_NUM_AUG), "--shared_tta"])
+    model = build_deeplab(args.backbone, device=device)
+    stack_shape = (args.num_aug, *feature_size_of(model.cfg), 1)
+    staged, seconds = {}, {}
+    with LaunchWindow(device) as window:
+        for mode in EVAL_MODES:
+            for chunk in (0, EVAL_CHUNK):
+                staged[mode, chunk], seconds[mode, chunk] = [], []
+                for name, image in zip(names, images):
+                    start = time.perf_counter()
+                    out = stage_feature_maps(model, name, image, EVAL_CLASS, mode,
+                                             args.num_aug, args.angle_max, args.shift_max,
+                                             chunk, SEED, args.shared_tta)
+                    torch.cuda.synchronize()
+                    seconds[mode, chunk].append(time.perf_counter() - start)
+                    staged[mode, chunk].append(out)
+    stagings = len(EVAL_MODES) * 2 * len(names)
+    window.check("staged", {k: v * stagings for k, v in WARP_LAUNCHES.items()})
+    for mode in EVAL_MODES:
+        agree, rel = 1.0, 0.0
+        for (cls0, mx0, a0, s0), (cls1, mx1, a1, s1) in zip(staged[mode, 0],
+                                                           staged[mode, EVAL_CHUNK]):
+            if tuple(cls0.shape) != stack_shape or not (
+                    torch.equal(a0, a1) and torch.equal(s0, s1)):
+                raise AssertionError(f"[staged] {mode}: wrong stack or draws")
+            if mode == "argmax":
+                agree = min(agree, float((cls0 == cls1).float().mean()))
+            for x0, x1 in ((cls0, cls1), (mx0, mx1)):
+                if x0 is not None:
+                    rel = max(rel, float((x0 - x1).abs().max() / x0.abs().max()))
+        log(f"[staged] {mode}: {len(names)} images, {args.num_aug} copies, synchronised "
+            f"steady {_steady(seconds[mode, 0]):.3f} s/image in one forward (first "
+            f"{seconds[mode, 0][0]:.3f}s), {_steady(seconds[mode, EVAL_CHUNK]):.3f} in "
+            f"chunks of {EVAL_CHUNK}; chunked vs one forward: argmax agreement {agree:.6f}, "
+            f"max |diff| / max |stack| {rel:.3g} (bounds {E2E_MASK_AGREE}, "
+            f"{BF16_STACK_RTOL})")
+        if agree < E2E_MASK_AGREE or rel > BF16_STACK_RTOL:
+            raise AssertionError(f"[staged] {mode}: the chunked forward disagrees")
+    first = staged["argmax", 0][0]
+    if not all(torch.equal(out[2], first[2]) for out in staged["argmax", 0]):
+        raise AssertionError("[staged] --shared_tta staged different sets")
+    del model
+    torch.cuda.empty_cache()
+    record = {"launches": window.launches, "peak_bytes": window.peak,
+              "s_per_image": {mode: _steady(seconds[mode, 0]) for mode in EVAL_MODES},
+              "s_per_image_chunked": {mode: _steady(seconds[mode, EVAL_CHUNK])
+                                      for mode in EVAL_MODES}}
+    return {mode: staged[mode, 0] for mode in EVAL_MODES}, record
+
+
+def phase_standard(device, images):
+    """generate_standard_output's core (``standard_masks``): the full model
+    with its x4 upsample, argmax, the class kept; one image a call,
+    synchronised. No shear kernel on this path."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli._common import (
+        build_deeplab)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.generate_standard_output \
+        import standard_masks
+
+    model = build_deeplab("xception", device=device, final_upsample=True)
+    masks, seconds = [], []
+    with LaunchWindow(device) as window:
+        for image in images:
+            start = time.perf_counter()
+            mask = standard_masks(model, torch.as_tensor(image, device=device)[None],
+                                  EVAL_CLASS)[0]
+            masks.append(mask.float().cpu().numpy())
+            seconds.append(time.perf_counter() - start)
+    window.check("standard", {name: 0 for name in KERNELS})
+    values = set(np.unique(np.stack(masks)).tolist())
+    if masks[0].shape != (*images.shape[1:3], 1) or not values <= {0.0, float(EVAL_CLASS)}:
+        raise AssertionError(f"[standard] masks {masks[0].shape} with values {values}")
+    log(f"[standard] {len(images)} images, full model (x4 upsample): steady "
+        f"{_steady(seconds):.3f} s/image (first {seconds[0]:.3f}s); class fraction "
+        f"{float(np.mean([m > 0 for m in masks])):.4f}")
+    return masks, model, {"launches": window.launches, "peak_bytes": window.peak,
+                          "s_per_image": _steady(seconds)}
+
+
+def phase_sr_eval(device, names, labels, staged, standard):
+    """SR_single_class's core over the staged stacks kept in memory, mode by
+    mode as three runs: load_sr_data's normalization (``prepare_sr_inputs``),
+    the shared set's stencil from one ``StencilCache`` (extracted at the
+    second image of the first run, reused after), ``score_image`` (aug, max
+    and mean SR, six IoUs against the scene's labels and the standard
+    mask), at SR_single_class's defaults (300 AMSGrad steps, th_factor
+    0.65); then threshold_tests' core (``threshold_ious``: one solve, its
+    own extraction, 17 thresholds) on the argmax stacks. Launches per image
+    as the design implies: per solved stack b (the operator forward and
+    backward), 35 probes more when the solve extracts its own stencil, and
+    an inverse warp each for max and mean; slice_max solves two stacks."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli import (
+        SR_single_class, threshold_tests)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli._common import (
+        make_sr_config)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.fused_operator import (
+        OPERATOR_LAUNCHES)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import (
+        RADIUS_X, RADIUS_Y)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.opm import (
+        prepare_sr_inputs)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        WARP_LAUNCHES)
+
+    probes = (2 * RADIUS_Y + 1) * (RADIUS_X + 1)
+    args = SR_single_class.build_parser().parse_args(
+        ["--class_id", str(EVAL_CLASS), "--num_aug", str(EVAL_NUM_AUG)])
+    # The LR size from the staged stacks, as SR_single_class reads it.
+    sr_cfg = make_sr_config(args, num_aug=args.num_aug,
+                            feature_size=tuple(staged["argmax"][0][0].shape[1:3]),
+                            output_size=labels.shape[1:3])
+    cache = SR_single_class.StencilCache()
+    expected = dict.fromkeys(KERNELS, 0)
+    timed = {mode: [] for mode in EVAL_MODES}
+    averages = {}
+    with LaunchWindow(device) as window:
+        for mode in EVAL_MODES:
+            run_seen, scores = set(), []
+            for i, (cls, mx, angles, shifts) in enumerate(staged[mode]):
+                start = time.perf_counter()
+                cls_n, mx_n = prepare_sr_inputs(cls, mx, mode)
+                before = cache.extractions
+                coeffs = cache.lookup(SR_single_class.tta_key(angles.cpu().numpy(),
+                                                              shifts.cpu().numpy()),
+                                      run_seen, angles, shifts, sr_cfg)
+                scores.append(SR_single_class.score_image(
+                    sr_cfg, cls_n, mx_n, angles, shifts, labels[i], standard[i],
+                    class_id=EVAL_CLASS, th_factor=args.th_factor, gram_coeffs=coeffs))
+                extracted = cache.extractions - before
+                if coeffs is not None and not extracted:
+                    timed[mode].append(time.perf_counter() - start)
+                stacks = 1 if mx_n is None else 2
+                applications = 1 + (probes if coeffs is None else 0)
+                for name in KERNELS:
+                    expected[name] += (stacks * (2 * OPERATOR_LAUNCHES[name] * applications
+                                                 + 2 * WARP_LAUNCHES[name])
+                                       + extracted * probes * 2 * OPERATOR_LAUNCHES[name])
+            if not all(0.0 <= v <= 1.0 for sc in scores for v in sc.values()):
+                raise AssertionError(f"[sr-eval] {mode}: an IoU outside [0, 1]: {scores}")
+            averages[mode] = {k: float(np.mean([sc[k] for sc in scores]))
+                              for k in SR_single_class.IOU_KEYS}
+    window.check("sr-eval", expected)
+    if cache.extractions != 1:
+        raise AssertionError(f"[sr-eval] {cache.extractions} stencil extractions, expected "
+                             "1 (at the second image of the first run)")
+    for mode in EVAL_MODES:
+        log(f"[sr-eval] {mode}: {len(names)} images, aug+max+mean and six IoUs, "
+            f"{np.mean(timed[mode]):.3f} s/image with the cached stencil "
+            f"({len(timed[mode])} images); averages "
+            + json.dumps({k: round(v, 4) for k, v in averages[mode].items()}))
+    log(f"[sr-eval] the shared set's stencil extracted once in {cache.extraction_s:.3f}s "
+        "(at the second image of the first run)")
+
+    factors = threshold_tests.threshold_grid(0.1, 0.9, 0.05)
+    seconds, curves = [], []
+    with LaunchWindow(device) as thresholds:
+        for i, (cls, mx, angles, shifts) in enumerate(staged["argmax"]):
+            start = time.perf_counter()
+            cls_n, _ = prepare_sr_inputs(cls, mx, "argmax")
+            curves.append(threshold_tests.threshold_ious(sr_cfg, cls_n, angles, shifts,
+                                                         labels[i], EVAL_CLASS, factors))
+            seconds.append(time.perf_counter() - start)
+    thresholds.check("threshold", {name: len(seconds) * 2 * OPERATOR_LAUNCHES[name]
+                                   * (1 + probes) for name in KERNELS})
+    curve = np.mean(curves, axis=0)
+    if len(factors) != 17 or not np.all((curve >= 0) & (curve <= 1)):
+        raise AssertionError(f"[threshold] curve {curve}")
+    log(f"[threshold] {len(seconds)} images, one solve (its own 35-probe extraction) and "
+        f"17 thresholds each: steady {_steady(seconds):.3f} s/image (first "
+        f"{seconds[0]:.3f}s); best th_factor {factors[int(np.argmax(curve))]} "
+        f"(IoU {curve.max():.4f})")
+    return ({"launches": window.launches, "peak_bytes": window.peak,
+             "s_per_image_cached_stencil": {m: float(np.mean(t)) for m, t in timed.items()},
+             "extraction_s": cache.extraction_s, "averages": averages},
+            {"launches": thresholds.launches, "peak_bytes": thresholds.peak,
+             "s_per_image": _steady(seconds)})
+
+
+def phase_robustness(device, model, images, labels):
+    """check_robustness' core (``robustness_grid``) at full width: the full
+    model, ROBUST_IMAGES scenes in one batch, ROBUST_ANGLES x ROBUST_SHIFTS^2
+    combinations, each a bilinear warp of the images and a nearest warp of
+    the labels (3 + 3 launches), the forward, the argmax and the per-image
+    mean IoU on the card, fetched once a combination. Then the card's warped
+    labels are held bit for bit (images to ATOL_F32) against the plain
+    path's on the CPU."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli import check_robustness
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        WARP_LAUNCHES)
+
+    images = torch.as_tensor(images, device=device)
+    gts = torch.as_tensor(labels, device=device)
+    combos = len(ROBUST_ANGLES) * len(ROBUST_SHIFTS) ** 2
+    rows, seconds = [], []
+    with LaunchWindow(device) as window:
+        start = time.perf_counter()
+        for row in check_robustness.robustness_grid(model, images, gts, ROBUST_ANGLES,
+                                                    ROBUST_SHIFTS, ROBUST_IMAGES):
+            rows.append(row)
+            seconds.append(time.perf_counter() - start)
+            start = time.perf_counter()
+    window.check("robustness", {k: 2 * v * combos for k, v in WARP_LAUNCHES.items()})
+    mious = {(a, sx, sy): m for a, sx, sy, m in rows}
+    if len(rows) != combos or not all(0.0 <= m <= 1.0 for m in mious.values()):
+        raise AssertionError(f"[robustness] {len(rows)} combinations: {rows}")
+    per_combo = _steady(seconds)
+    log(f"[robustness] {images.shape[0]} images x {combos} combinations: steady "
+        f"{per_combo:.4f} s/combination ({images.shape[0] / per_combo:.1f} images/s; "
+        f"first {seconds[0]:.3f}s); combination mean IoUs: identity "
+        f"{mious[0.0, 0.0, 0.0]:.4f}, min {min(mious.values()):.4f}, max "
+        f"{max(mious.values()):.4f}; all " + json.dumps([round(m, 4) for *_, m in rows]))
+    combo = (ROBUST_ANGLES[-1], ROBUST_SHIFTS[-1], ROBUST_SHIFTS[0])
+    aug, gt_aug = check_robustness.warp_batch(images, gts, *combo)
+    aug_cpu, gt_cpu = check_robustness.warp_batch(images.cpu(), gts.cpu(), *combo)
+    img_err = float((aug.cpu() - aug_cpu).abs().max())
+    equal = bool(torch.equal(gt_aug.cpu(), gt_cpu))
+    log(f"[robustness] combination {combo} card vs the plain path on the CPU: labels "
+        f"equal {equal}, images max err {img_err:.3g} (bound {ATOL_F32})")
+    if not equal or img_err > ATOL_F32:
+        raise AssertionError("[robustness] the card's warp disagrees with the plain path")
+    return {"launches": window.launches, "peak_bytes": window.peak, "combinations": combos,
+            "s_per_combination": per_combo, "images_per_s": images.shape[0] / per_combo,
+            "identity_miou": mious[0.0, 0.0, 0.0]}
+
+
+def _close(label, what, cpu, gpu, atol):
+    err = float((torch.as_tensor(cpu) - torch.as_tensor(gpu)).abs().max())
+    log(f"[eval-small] {label}: {what} max err {err:.3g} (bound {atol:.3g})")
+    if not err <= atol:
+        raise AssertionError(f"[eval-small] {label}: the card and the CPU disagree")
+
+
+def _agree(label, cpu, gpu):
+    agree = float((torch.as_tensor(cpu) == torch.as_tensor(gpu)).float().mean())
+    log(f"[eval-small] {label}: mask agreement {agree:.6f} (bound {E2E_MASK_AGREE})")
+    if agree < E2E_MASK_AGREE:
+        raise AssertionError(f"[eval-small] {label}: the card and the CPU disagree")
+
+
+def phase_eval_small(device):
+    """The evaluation cores on the card against the same calls on the CPU
+    (the plain versions), Xception OS16 at 64 px in f32 on a synthetic
+    scene: stage_feature_maps in every mode (masks >= E2E_MASK_AGREE equal;
+    the [0, 1] slice stack to E2E_TARGET_ATOL, the raw slice_max logits to
+    E2E_TARGET_ATOL of their scale); standard_masks; score_image of the
+    CPU's argmax and slice_max stacks, and threshold_ious, IoUs to
+    EVAL_IOU_ATOL; robustness_grid of two images over 2 x 2 x 2
+    combinations, mean IoUs to EVAL_IOU_ATOL. The ground truth is the CPU
+    full model's own labels, so that the IoUs are not trivial."""
+    import dataclasses
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli import (
+        SR_single_class, check_robustness, threshold_tests)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli._common import (
+        SEED, make_sr_config)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.generate_standard_output \
+        import standard_masks
+    from deeplabv3plus_augmented_superresolution_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
+        DeepLabConfig, build_model)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.opm import (
+        prepare_sr_inputs)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline.feature_maps import (
+        stage_feature_maps)
+
+    cfg = DeepLabConfig(input_shape=(64, 64, 3), final_upsample=False)
+    full_cfg = dataclasses.replace(cfg, final_upsample=True)
+    sr_cfg = make_sr_config(None, num_aug=4, feature_size=(16, 16), output_size=(64, 64),
+                            num_iter=30)
+    images, _ = synthetic_batch(np.random.default_rng(11), 2, size=(64, 64))
+    factors = threshold_tests.threshold_grid(0.1, 0.9, 0.05)
+    outs, truth, class_id = [], None, None
+    for dev in (torch.device("cpu"), device):
+        model = build_model(cfg, seed=0, device=dev)
+        full = build_model(full_cfg, seed=0, device=dev)
+        imgs = torch.as_tensor(images, device=dev)
+        if truth is None:   # the CPU model's labels and its most frequent class
+            with torch.no_grad():
+                truth = full(imgs).argmax(-1, keepdim=True).float()
+            class_id = int(torch.bincount(truth.flatten().long(), minlength=21).argmax())
+        out = {"staged": {mode: stage_feature_maps(model, "small", images[0], class_id,
+                                                   mode, 4, 0.15, 8.0, 0, SEED)
+                          for mode in EVAL_MODES},
+               "standard": standard_masks(full, imgs, class_id)}
+        cpu_staged = outs[0]["staged"] if outs else out["staged"]
+        out["scores"] = {}
+        for mode in ("argmax", "slice_max"):
+            cls, mx, angles, shifts = (t if t is None else t.to(dev)
+                                       for t in cpu_staged[mode])
+            cls_n, mx_n = prepare_sr_inputs(cls, mx, mode)
+            out["scores"][mode] = SR_single_class.score_image(
+                sr_cfg, cls_n, mx_n, angles, shifts, truth[0].cpu().numpy(),
+                truth[0].cpu().numpy(), class_id=class_id, th_factor=0.2)
+        cls, _, angles, shifts = (t if t is None else t.to(dev)
+                                  for t in cpu_staged["argmax"])
+        out["thresholds"] = threshold_tests.threshold_ious(
+            sr_cfg, prepare_sr_inputs(cls, None, "argmax")[0], angles, shifts,
+            truth[0].cpu().numpy(), class_id, factors)
+        out["robustness"] = [m for *_, m in check_robustness.robustness_grid(
+            full, imgs, truth.to(dev), (-0.1, 0.1), (0.0, 4.0), batch_size=2)]
+        outs.append(out)
+    cpu, gpu = outs
+    log(f"[eval-small] class {class_id}")
+    for mode in EVAL_MODES:
+        (c_cls, c_mx, c_a, _), (g_cls, g_mx, g_a, _) = cpu["staged"][mode], gpu["staged"][mode]
+        _close(f"staged {mode}", "angles", c_a, g_a.cpu(), 0.0)
+        if mode == "argmax":
+            _agree("staged argmax", c_cls, g_cls.cpu())
+        elif mode == "slice":
+            _close("staged slice", "[0, 1] stack", c_cls, g_cls.cpu(), E2E_TARGET_ATOL)
+        else:
+            scale = float(c_cls.abs().max())
+            _close("staged slice_max", "class logits", c_cls, g_cls.cpu(),
+                   E2E_TARGET_ATOL * scale)
+            _close("staged slice_max", "max logits", c_mx, g_mx.cpu(),
+                   E2E_TARGET_ATOL * scale)
+    _agree("standard masks", cpu["standard"], gpu["standard"].cpu())
+    for mode in ("argmax", "slice_max"):
+        _close(f"score_image {mode}", "six IoUs",
+               [cpu["scores"][mode][k] for k in SR_single_class.IOU_KEYS],
+               [gpu["scores"][mode][k] for k in SR_single_class.IOU_KEYS], EVAL_IOU_ATOL)
+    _close("threshold_ious", "17 IoUs", cpu["thresholds"], gpu["thresholds"], EVAL_IOU_ATOL)
+    _close("robustness_grid", "8 combination mean IoUs", cpu["robustness"],
+           gpu["robustness"], EVAL_IOU_ATOL)
+
+
 def check_target(model, device, image, class_id, coeffs, sr_cfg, angles, shifts):
     """The continuous SR target of one full-size image is finite, (512, 512, 1)."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
@@ -1244,17 +1701,18 @@ def main() -> None:
         sys.path.insert(0, args.package_root)
     # The port itself first: outside a checkout this fails before any output.
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
-        FEATURE_SIZES, SEED, make_sr_config)
+        SEED, feature_size_of, make_sr_config)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models import DeepLabConfig
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
         sample_augmentations)
 
     device = phase_device()
     t_start = time.perf_counter()
     phase_build()
-    sr_cfg = make_sr_config(None, num_aug=100, feature_size=FEATURE_SIZES["xception"],
-                            angle_max=0.15)
-    mob_sr_cfg = make_sr_config(None, num_aug=100,
-                                feature_size=FEATURE_SIZES["mobilenet"], angle_max=0.15)
+    sr_cfg = make_sr_config(None, num_aug=100, angle_max=0.15)
+    mob_sr_cfg = make_sr_config(
+        None, num_aug=100, angle_max=0.15,
+        feature_size=feature_size_of(DeepLabConfig(backbone="mobilenet")))
     angles, shifts = sample_augmentations(torch.Generator().manual_seed(SEED), 100,
                                           0.15, 80.0, device=device)
     if args.kernels_only:
@@ -1281,9 +1739,23 @@ def main() -> None:
     paths["serve-mobilenet"] = phase_serve_mobilenet(
         device, images[:MOBILENET_IMAGES], mob_coeffs, mob_sr_cfg)
     paths.update(phase_train(device, images, coeffs, sr_cfg))
+    # The evaluation workflow: staging, standard masks, SR evaluation with
+    # the threshold study, the robustness grid.
+    names, eval_images, eval_labels = eval_scenes(args.seed, ROBUST_IMAGES)
+    staged, paths["staged"] = phase_staged(device, names[:EVAL_IMAGES],
+                                           eval_images[:EVAL_IMAGES])
+    standard, full_model, paths["standard"] = phase_standard(device,
+                                                             eval_images[:EVAL_IMAGES])
+    paths["sr-eval"], paths["threshold"] = phase_sr_eval(
+        device, names[:EVAL_IMAGES], eval_labels, staged, standard)
+    del staged
+    paths["robustness"] = phase_robustness(device, full_model, eval_images, eval_labels)
+    del full_model
+    torch.cuda.empty_cache()
     kernel_results = phase_kernel(device, angles, shifts)
     phase_small_e2e(device)
     phase_train_small(device)
+    phase_eval_small(device)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     entries = []
@@ -1299,7 +1771,7 @@ def main() -> None:
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "ms_case": main_case["case"],
             "per_case": cases})
-    log("[done] serving and training paths " + json.dumps(
+    log("[done] serving, training and evaluation paths " + json.dumps(
         {label: {k: v for k, v in p.items() if k != "launches"}
          for label, p in paths.items()}))
     print(json.dumps({"kernels": entries}))

@@ -34,25 +34,19 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Un
 import numpy as np
 import torch
 
-from ..models import DeepLabConfig, build_model, default_weights_path
 from ..models.deeplab import DeepLab
 from ..pipeline import asr_step, asr_step_multiclass, sample_augmentations
 from ..pipeline.augment import image_generator
 from ..pipeline.end_to_end import SR_TYPES
-from ..sr import OptimizerConfig, SRConfig, load_stencil, precompute_gram_stencil, save_stencil
-from ..utils.profiling import StageTimer
+from ..sr import SRConfig, load_stencil, precompute_gram_stencil, save_stencil
+from ..utils.profiling import StageTimer, trace_to
+from ._common import (IMG_SIZE, NOT_PORTED, SEED, add_device_arg, add_sr_args,
+                      build_deeplab, feature_size_of, make_sr_config, reads_one_stencil)
 
-SEED = 1234
-IMG_SIZE = (512, 512)
-# The network's output size at 512 px: Xception OS16 + decoder is 1/4,
-# MobileNetV2 (OS8, no decoder) 1/8.
-FEATURE_SIZES = {"xception": (128, 128), "mobilenet": (64, 64)}
-FEATURE_SIZE = FEATURE_SIZES["xception"]
 DEFAULT_CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     ".dsr_cache")
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1: {!r})"
 BATCH_NEEDS_SHARED_TTA = ("--batch requires the fixed-TTA-set mode "
                           "(drop --per_image_augs)")
 # Batches staged ahead of the card by the staging thread.
@@ -115,43 +109,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "encode + IoU overlapped with device work; "
                              "0 = synchronous writes)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="profiler trace directory (not ported yet)")
+                        help="write a torch.profiler trace of the steady-state "
+                             "loop (every step after the first) here, as a "
+                             "Chrome trace (open with Perfetto)")
     parser.add_argument("--summary_json", type=str, default="",
                         help="write a machine-readable run summary here")
     parser.add_argument("--cache_dir", type=str, default=DEFAULT_CACHE_DIR,
                         help="warm-start cache for the serving gram stencil, "
                              "keyed by (TTA set, operator config); '' disables")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on (the CUDA kernel needs "
-                             "'cuda'; 'cpu' runs the plain versions)")
+    add_device_arg(parser)
     add_sr_args(parser)
-    return parser
-
-
-def add_sr_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    parser.add_argument("--lambda_df", type=float, default=1.0)
-    parser.add_argument("--lambda_tv", type=float, default=0.3)
-    parser.add_argument("--lambda_L2", type=float, default=0.7)
-    parser.add_argument("--lambda_L1", type=float, default=0.0)
-    parser.add_argument("--num_iter", type=int, default=300)
-    parser.add_argument("--optimizer", type=str, default="adam",
-                        choices=["adam", "adamax", "adagrad", "adadelta", "sgd"])
-    parser.add_argument("--learning_rate", type=float, default=1e-3)
-    parser.add_argument("--amsgrad", action="store_true", default=True)
-    parser.add_argument("--lr_scheduler", action="store_true", default=True)
-    parser.add_argument("--decay_steps", type=int, default=60)
-    parser.add_argument("--decay_rate", type=float, default=0.3)
-    parser.add_argument("--copy_dropout", type=float, default=0.0)
-    parser.add_argument("--use_BTV", action="store_true")
-    parser.add_argument("--sgd_copies", type=int, default=0)
-    parser.add_argument("--solver_impl", type=str, default="gram",
-                        choices=["gram", "cg", "direct"])
-    parser.add_argument("--operator_impl", type=str, default="fused",
-                        choices=["fused", "staged"])
-    parser.add_argument("--warp_impl", type=str, default="shear",
-                        choices=["shear", "gather"])
-    parser.add_argument("--gram_probing", type=str, default="aliased",
-                        choices=["aliased", "dense"])
     return parser
 
 
@@ -160,7 +127,6 @@ def _unported_flags(args) -> List[str]:
     checks = [
         (args.warp_impl != "shear", "--warp_impl gather", "ops/warp.py"),
         (args.operator_impl != "fused", "--operator_impl staged", "ops/warp.py"),
-        (args.profile_dir is not None, "--profile_dir", "the remaining CLIs"),
     ]
     return [f"{flag} {NOT_PORTED.format(item)}" for bad, flag, item in checks if bad]
 
@@ -216,55 +182,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def make_sr_config(args=None, num_aug: int = 100, feature_size=FEATURE_SIZE,
-                   output_size=IMG_SIZE, **overrides) -> SRConfig:
-    """SRConfig from CLI args with the reference's serving defaults."""
-    hp = {
-        "lambda_df": 1.0, "lambda_tv": 0.3, "lambda_L2": 0.7, "lambda_L1": 0.0,
-        "num_iter": 300, "optimizer": "adam", "learning_rate": 1e-3,
-        "amsgrad": True, "lr_scheduler": True, "decay_steps": 60,
-        "decay_rate": 0.3, "copy_dropout": 0.0, "use_BTV": False,
-        "angle_max": 0.5, "sgd_copies": 0, "solver_impl": "gram",
-        "operator_impl": "fused", "warp_impl": "shear",
-        "gram_probing": "aliased",
-    }
-    if args is not None:
-        for key in hp:
-            if hasattr(args, key):
-                hp[key] = getattr(args, key)
-    hp.update(overrides)
-    opt = OptimizerConfig(
-        name=hp["optimizer"], learning_rate=hp["learning_rate"],
-        amsgrad=hp["amsgrad"], lr_scheduler=hp["lr_scheduler"],
-        decay_steps=hp["decay_steps"], decay_rate=hp["decay_rate"])
-    return SRConfig(
-        lambda_df=hp["lambda_df"], lambda_tv=hp["lambda_tv"],
-        lambda_L2=hp["lambda_L2"], lambda_L1=hp["lambda_L1"],
-        num_iter=hp["num_iter"], num_aug=num_aug,
-        feature_size=tuple(feature_size), output_size=tuple(output_size),
-        use_BTV=hp["use_BTV"], copy_dropout=hp["copy_dropout"],
-        angle_max=max(float(hp["angle_max"]), 1e-3),
-        sgd_copies=hp["sgd_copies"], solver_impl=hp["solver_impl"],
-        operator_impl=hp["operator_impl"], warp_impl=hp["warp_impl"],
-        gram_probing=hp["gram_probing"], optimizer=opt)
-
-
-def build_deeplab(backbone: str = "xception", weights_path: Optional[str] = None,
-                  *, device) -> DeepLab:
-    """The serving model (Xception OS16 or MobileNetV2 OS8, bf16, no final
-    upsample), with the bonlime checkpoint when a local .h5 exists, else
-    random init (seed 0)."""
-    cfg = DeepLabConfig(input_shape=IMG_SIZE + (3,), classes=21, os=16,
-                        backbone=backbone, final_upsample=False,
-                        compute_dtype="bfloat16")
-    path = weights_path or default_weights_path(backbone)
-    if not os.path.exists(path):
-        print(f"WARNING: pretrained weights not found at {path}; running with "
-              "random initialization (masks will be meaningless)")
-        path = None
-    return build_model(cfg, seed=0, weights_path=path, device=device)
-
-
 class ArtifactWriter:
     """Bounded writer pool: each result (still on the device) is fetched,
     encoded and scored here while the device runs the next image."""
@@ -309,12 +226,9 @@ def _stencil_for_run(angles, shifts, sr_cfg: SRConfig, cache_dir: str) -> torch.
 
 
 def uses_shared_stencil(sr_cfg: SRConfig, sr_types: Sequence[str]) -> bool:
-    """Whether a fixed-TTA run extracts the stencil once for every solve: the
-    solver reads one ("gram" or "cg", no minibatching) and no copy dropout
-    makes it change per solve (the JAX CLI's condition)."""
-    return (sr_cfg.solver_impl in ("gram", "cg") and "aug" in sr_types
-            and sr_cfg.copy_dropout == 0.0
-            and not 0 < sr_cfg.sgd_copies < sr_cfg.num_aug)
+    """Whether a fixed-TTA run extracts the stencil once for every solve: it
+    solves "aug" and the solver reads one stencil (the JAX CLI's condition)."""
+    return "aug" in sr_types and reads_one_stencil(sr_cfg)
 
 
 def _host_image(image, dtype: torch.dtype) -> torch.Tensor:
@@ -418,7 +332,7 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
           gt_dir: Optional[str] = None, cache_dir: str = "",
           gram_coeffs: Optional[torch.Tensor] = None, chunk_size: int = 0,
           writer_threads: int = 4, summary_json: str = "", timer=None,
-          loader: str = "arrays") -> Dict:
+          loader: str = "arrays", profile_dir: Optional[str] = None) -> Dict:
     """Serve (name, (H, W, 3) image in [0, 1]) pairs through ASR. An image is
     a float numpy array or a CPU tensor (the native ring's bf16 frames).
 
@@ -444,7 +358,9 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
     (``first_image_s``) to the last; "loop_stages" times the loop's host
     stages (host_decode, host_to_device, dispatch, device_fetch,
     encode_write_score; they overlap), "stages" the timer's; "loader" names
-    what decoded the images.
+    what decoded the images. profile_dir: a torch.profiler trace of the
+    steps after the first (``utils.profiling.trace_to``), written when the
+    writer pool has drained.
     """
     device = torch.device(device)
     class_ids = (int(class_id),) if isinstance(class_id, int) else tuple(class_id)
@@ -537,6 +453,7 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
         return torch.stack([out[k] for k in out_keys]).to(torch.uint8)
 
     writer = ArtifactWriter(writer_threads) if writer_threads else None
+    trace = contextlib.ExitStack()
     start = time.perf_counter()
     n_images = n_steps = 0
     host = _host_batches(images, step_images, model.cfg.dtype, loop_timer)
@@ -551,9 +468,13 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
                     emit(image_names, packed)
                 n_images += len(image_names)
                 n_steps += 1
+                if profile_dir and n_steps == 1:
+                    # The steady state only: the first step pays first-use work.
+                    trace.enter_context(trace_to(profile_dir))
     finally:
         if writer:
             writer.close()
+        trace.close()
     wall = time.perf_counter() - start
     done.sort()
     first_s = done[0][0] - start if done else None
@@ -650,7 +571,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     device = torch.device(args.device)
     model = build_deeplab(args.backbone, args.weights_path, device=device)
     sr_cfg = make_sr_config(args, num_aug=args.num_aug,
-                            feature_size=FEATURE_SIZES[args.backbone],
+                            feature_size=feature_size_of(model.cfg),
                             output_size=IMG_SIZE, angle_max=args.angle_max)
     loader, images = image_source(paths, args.prefetch, model.cfg.dtype)
     print(f"images decoded by the {loader}")
@@ -663,12 +584,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                     output_dir=args.output_dir,
                     gt_dir=args.gt_dir, cache_dir=args.cache_dir,
                     chunk_size=args.chunk_size, writer_threads=args.writer_threads,
-                    summary_json=args.summary_json, loader=loader)
+                    summary_json=args.summary_json, loader=loader,
+                    profile_dir=args.profile_dir)
     msg = f"{summary['n_images']} images in {summary['wall_s']:.1f}s"
     if summary["steady_s_per_image"]:
         msg += f" ({summary['steady_s_per_image']:.3f} s/image steady"
         msg += f", batch={args.batch})" if args.batch > 1 else ")"
     print(msg + f"; masks under {args.output_dir}")
+    if args.profile_dir:
+        print(f"profiler trace written to {args.profile_dir}")
     for k, v in summary["ious"].items():
         print(f"  avg IoU[{k}]: {v:.4f}")
     return summary

@@ -48,7 +48,7 @@ from ..models.optim import make_optimizer
 from ..models.train import MasterParams, make_train_step
 from ..pipeline.augment import sample_warp_draws, warp_augment_batch_with_draws
 from ..utils.checkpoint import load_train_state, restore_opt_state, save_train_state
-from .run_asr import NOT_PORTED, SEED
+from ._common import NOT_PORTED, SEED
 
 ORBAX_NOT_PORTED = ("is not ported (ROADMAP ground rules: orbax checkpoints stay "
                     "on the JAX side; use the npz train state)")

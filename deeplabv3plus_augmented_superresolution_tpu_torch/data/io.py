@@ -1,7 +1,11 @@
-"""Image I/O (port of the JAX package's ``data/io.py`` load_image / save_img).
+"""Image and hdf5 I/O (port of the JAX package's ``data/io.py``).
 
-PIL is imported inside the functions that decode or encode, so the rest of
-the package runs where PIL is not installed.
+The hdf5 staging format is the reference's (augmentation_utils.py:117-136):
+datasets class_masks / [max_masks] / angles / shifts and attrs filename /
+mode / angle_max / shift_max, so either package reads the other's files.
+
+PIL and h5py are imported inside the functions that use them, so the rest
+of the package runs where they are not installed.
 """
 
 import os
@@ -10,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.opm import prepare_sr_inputs
 from ..ops.resize import resize
 
 
@@ -57,3 +62,58 @@ def save_img(path: str, x, scale: bool = True, compress_level: int = 6) -> None:
     img = Image.fromarray(x[..., 0], mode="L") if x.shape[-1] == 1 else Image.fromarray(x)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     img.save(path, compress_level=compress_level)
+
+
+def write_augmented_hdf5(dest_folder: str, image_name: str, class_masks,
+                         angles, shifts, mode: str, angle_max: float,
+                         shift_max: float, max_masks=None) -> str:
+    """Stage one image's LR masks and augmentation set to
+    ``dest_folder/<image_name>.hdf5``; max_masks are kept in slice_max mode."""
+    import h5py
+
+    os.makedirs(dest_folder, exist_ok=True)
+    path = os.path.join(dest_folder, f"{image_name}.hdf5")
+    with h5py.File(path, "w") as f:
+        f.create_dataset("class_masks", data=np.asarray(class_masks))
+        if mode == "slice_max" and max_masks is not None:
+            f.create_dataset("max_masks", data=np.asarray(max_masks))
+        f.create_dataset("angles", data=np.asarray(angles))
+        f.create_dataset("shifts", data=np.asarray(shifts))
+        f.attrs["filename"] = image_name
+        f.attrs["mode"] = mode
+        f.attrs["angle_max"] = angle_max
+        f.attrs["shift_max"] = shift_max
+    return path
+
+
+def check_hdf5_validity(file, num_aug: int = 100) -> bool:
+    """Every dataset must have first-dim >= num_aug (reference
+    superres_utils.py:108-115)."""
+    return all(file[key].shape[0] >= num_aug for key in file)
+
+
+def load_sr_data(filepath: str, num_aug: int = 100, global_normalize: bool = True,
+                 device="cpu"):
+    """Load a staged hdf5 and normalize its stacks (reference
+    superres_utils.py:154-210): (class_masks, max_masks or None, angles,
+    shifts, filename), the masks float32 tensors on ``device`` with the
+    mode's [0, 1] normalization (``ops.opm.prepare_sr_inputs``), angles and
+    shifts float32 numpy. Raises ValueError for a file with fewer than
+    num_aug copies."""
+    import h5py
+
+    with h5py.File(filepath, "r") as f:
+        if not check_hdf5_validity(f, num_aug=num_aug):
+            raise ValueError(f"File: {filepath} is invalid")
+        filename = f.attrs["filename"]
+        mode = f.attrs["mode"]
+        angles = f["angles"][:num_aug].astype(np.float32)
+        shifts = f["shifts"][:num_aug].astype(np.float32)
+        class_masks = torch.as_tensor(f["class_masks"][:num_aug].astype(np.float32),
+                                      device=device)
+        max_masks = (torch.as_tensor(f["max_masks"][:num_aug].astype(np.float32),
+                                     device=device)
+                     if mode == "slice_max" and "max_masks" in f else None)
+    class_masks, max_masks = prepare_sr_inputs(class_masks, max_masks, mode=str(mode),
+                                               global_normalize=global_normalize)
+    return class_masks, max_masks, angles, shifts, str(filename)

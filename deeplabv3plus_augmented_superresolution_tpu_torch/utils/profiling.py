@@ -1,4 +1,5 @@
-"""Per-stage wall times (port of the JAX package's ``utils/profiling.StageTimer``).
+"""Per-stage wall times and profiler traces (port of the JAX package's
+``utils/profiling.StageTimer`` and ``trace_to``).
 
 With ``sync_device`` set, each stage is bracketed by
 ``torch.cuda.synchronize(device)``, so its wall time covers the device work
@@ -7,6 +8,7 @@ record pure wall time under a lock, safe inside overlapped pipelines.
 """
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -54,3 +56,24 @@ class StageTimer:
                     d["steady_ms_per_call"] = (total - mx) / (count - 1) * 1000
                 out[name] = d
             return out
+
+
+@contextlib.contextmanager
+def trace_to(log_dir: str):
+    """A torch.profiler trace of the block (host activity, and the card's
+    when CUDA is available), written to ``log_dir/trace_<pid>.json`` as a
+    Chrome trace (open with Perfetto) when the block exits; the card is
+    synchronised first, so the trace holds the block's device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))

@@ -354,6 +354,40 @@ def test_warp_augment_layouts_on_card(cuda_device, size):
     assert card[1].dtype == torch.uint8 and torch.equal(card[1].cpu(), cpu[1])
 
 
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("size", [64, 512])
+def test_robustness_layouts_on_card(cuda_device, size):
+    """check_robustness' layout: a batch of different images (3 planes) and
+    of their label maps (1 plane, the nearest mode) sharing one
+    combination's angle and shift, on the card against the CPU: images
+    1e-5, labels (255 contours, the zero border) bit for bit; 4 shear_rows
+    + 2 shear_cols launches; and the combination's (sum, count) of
+    per-image mean IoUs of the full model equal to the CPU's."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.check_robustness import (
+        combo_iou_sums, warp_batch)
+
+    rng = np.random.default_rng(41)
+    n = 16 if size == 512 else 3
+    images = torch.from_numpy(rng.uniform(0, 1, (n, size, size, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.choice([0.0, 8.0, 12.0, 255.0],
+                                         (n, size, size, 1)).astype(np.float32))
+    combo = (0.35, size / 6.4, -size / 6.4)
+    cpu = warp_batch(images, labels, *combo)
+    before = _launches()
+    card = warp_batch(images.to(cuda_device), labels.to(cuda_device), *combo)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _launches().items()} == {
+        k: 2 * v for k, v in WARP_LAUNCHES.items()}
+    assert float((card[0].cpu() - cpu[0]).abs().max()) <= 1e-5
+    assert torch.equal(card[1].cpu(), cpu[1])
+    if size == 64:
+        cfg = DeepLabConfig(input_shape=(64, 64, 3), final_upsample=True)
+        sums = [combo_iou_sums(build_model(cfg, seed=0, device=dev), images.to(dev),
+                               labels.to(dev), *combo) for dev in ("cpu", cuda_device)]
+        assert abs(float(sums[0][0]) - float(sums[1][0])) <= 1e-3 * n
+        assert int(sums[0][1]) == int(sums[1][1])
+
 def _conditioned_start(cfg):
     """tests/test_torch_train.py's start for one train step, where its
     gradient is well conditioned: the initial params with every

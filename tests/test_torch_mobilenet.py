@@ -53,6 +53,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     precompute_gram_stencil,
 )
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr.solver import _normal_op
+from test_torch_shear import run_fast
 
 torch.set_num_threads(2)
 
@@ -89,8 +90,8 @@ def test_mobilenet_f32_logits_match_jax(jax_params, image):
     sides, 1e-4 of the logit scale (as the Xception test)."""
     cfg = DeepLabConfig(**SMALL, os=16)
     assert cfg.os == 8
-    ref = np.asarray(j_forward_jit(jax_params, jnp.asarray(image),
-                                   JDeepLabConfig(**SMALL)))
+    ref = np.asarray(run_fast(j_forward_jit, jax_params, jnp.asarray(image),
+                              cfg=JDeepLabConfig(**SMALL)))
     model = DeepLab(cfg, device="cpu").load_params(params_from_jax(jax_params)).eval()
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()
@@ -103,8 +104,8 @@ def test_mobilenet_bf16_masks_agree_with_jax(jax_params, image):
     on >= 90% of pixels, logits within 5% of their scale (as the Xception
     test)."""
     cfg = dict(SMALL, compute_dtype="bfloat16")
-    ref = np.asarray(j_forward_jit(jax_params, jnp.asarray(image),
-                                   JDeepLabConfig(**cfg)))
+    ref = np.asarray(run_fast(j_forward_jit, jax_params, jnp.asarray(image),
+                              cfg=JDeepLabConfig(**cfg)))
     model = build_model(DeepLabConfig(**cfg), params=jax_params, device="cpu")
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()
@@ -215,8 +216,8 @@ def test_stencil_at_feature_8_matches_jax_and_the_normal_operator():
     angles, shifts, planes = _factor8_case()
     kw = dict(num_aug=4, feature_size=(8, 8), output_size=(64, 64), angle_max=0.15,
               solver_impl="gram")
-    ref = np.asarray(jax.jit(j_precompute_gram_stencil, static_argnames="cfg")(
-        jnp.asarray(angles), jnp.asarray(shifts), JSRConfig(**kw)))
+    ref = np.asarray(run_fast(jax.jit(j_precompute_gram_stencil, static_argnames="cfg"),
+                              jnp.asarray(angles), jnp.asarray(shifts), cfg=JSRConfig(**kw)))
     cfg = SRConfig(**kw)
     ta, ts = torch.from_numpy(angles), torch.from_numpy(shifts)
     coeffs = precompute_gram_stencil(ta, ts, cfg)

@@ -27,6 +27,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
     params_from_jax,
     save_params_npz,
 )
+from test_torch_shear import run_fast
 
 torch.set_num_threads(2)
 
@@ -69,9 +70,9 @@ def os16_refs(jax_params, image):
                 for n, v in weights.items())}
     cfgs = {"full": JDeepLabConfig(**SMALL),
             **{v: JDeepLabConfig(**_variant_cfg(v)) for v in VARIANTS}}
-    logits = jax.jit(lambda p, h, x: {k: j_forward({**p, **h.get(k, {})}, x, c)
-                                      for k, c in cfgs.items()})(
-        jax_params, heads, jnp.asarray(image))
+    logits = run_fast(jax.jit(lambda p, h, x: {k: j_forward({**p, **h.get(k, {})}, x, c)
+                                               for k, c in cfgs.items()}),
+                      jax_params, heads, jnp.asarray(image))
     variant_params = {v: {layer: heads[v].get(layer, jax_params.get(layer))
                           for layer in inits[v]} for v in VARIANTS}
     return ({k: np.asarray(v) for k, v in logits.items()}, inits, variant_params)
@@ -106,8 +107,8 @@ def test_params_from_jax_layouts(jax_params):
 def test_xception_f32_logits_match_jax(jax_params, image, os16_refs, os_):
     """Shared params, f32 on both sides: ~75 convolutions deep, the two
     frameworks' conv sums differ in order, 1e-4 of the logit scale."""
-    ref = os16_refs[0]["full"] if os_ == 16 else np.asarray(j_forward_jit(
-        jax_params, jnp.asarray(image), JDeepLabConfig(**SMALL, os=os_)))
+    ref = os16_refs[0]["full"] if os_ == 16 else np.asarray(run_fast(
+        j_forward_jit, jax_params, jnp.asarray(image), cfg=JDeepLabConfig(**SMALL, os=os_)))
     model = DeepLab(DeepLabConfig(**SMALL, os=os_), device="cpu").load_params(
         params_from_jax(jax_params)).eval()
     with torch.no_grad():
@@ -122,8 +123,8 @@ def test_xception_bf16_masks_agree_with_jax(jax_params, image):
     argmax labels agree on >= 90% of pixels of a random-init model (whose
     class margins are small), and the logits stay within 5% of their scale."""
     cfg = dict(SMALL, compute_dtype="bfloat16")
-    ref = np.asarray(j_forward_jit(jax_params, jnp.asarray(image),
-                                   JDeepLabConfig(**cfg)))
+    ref = np.asarray(run_fast(j_forward_jit, jax_params, jnp.asarray(image),
+                              cfg=JDeepLabConfig(**cfg)))
     model = build_model(DeepLabConfig(**cfg), params=jax_params, device="cpu")
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()

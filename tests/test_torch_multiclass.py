@@ -66,8 +66,10 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     multiclass_max_mean_superresolution,
     precompute_gram_stencil,
 )
+from test_torch_shear import EXACT_COMPILE, run_fast
 
 torch.set_num_threads(2)
+
 
 SERVING_OPT = dict(learning_rate=1e-3, amsgrad=True, lr_scheduler=True,
                    decay_steps=60, decay_rate=0.3)
@@ -111,8 +113,8 @@ def max_mean_case():
                 "max_mean": j_max_mean(m[0], a, s, cfg),
                 "multiclass": j_multiclass_max_mean(m, a, s, cfg)}
 
-    ref = jax.tree.map(np.asarray, jax.jit(all_four)(
-        jnp.asarray(masks), jnp.asarray(angles), jnp.asarray(shifts)))
+    ref = jax.tree.map(np.asarray, run_fast(jax.jit(all_four), jnp.asarray(masks),
+                                            jnp.asarray(angles), jnp.asarray(shifts)))
     return masks, angles, shifts, ref
 
 
@@ -276,9 +278,9 @@ def step_case():
                                                class_id=CLASSES[0], gram_coeffs=coeffs,
                                                **SLICE_MAX))(images))
 
-    ref, ref_slice_max = jax.jit(both)(
-        params, jnp.asarray(images), jnp.asarray(angles), jnp.asarray(shifts),
-        jnp.asarray(coeffs.numpy()))
+    ref, ref_slice_max = run_fast(jax.jit(both), params, jnp.asarray(images),
+                                  jnp.asarray(angles), jnp.asarray(shifts),
+                                  jnp.asarray(coeffs.numpy()), options=EXACT_COMPILE)
     ours = asr_step_multiclass(model, torch.from_numpy(image), ta, ts, sr_cfg, CLASSES,
                                gram_coeffs=coeffs, **kw)
     return dict(model=model, image=torch.from_numpy(image),

@@ -43,6 +43,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     precompute_gram_stencil,
 )
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr.solver import _normal_op
+from test_torch_shear import run_fast
 
 torch.set_num_threads(2)
 
@@ -134,7 +135,8 @@ def test_aliased_stencil_matches_jax():
         return vjp(out)[0]
 
     # jitted: one compile for the 35 probes and the disentangling
-    ref = np.asarray(jax.jit(lambda: j_extract_aliased(j_normal_op, jcfg.output_size))())
+    ref = np.asarray(run_fast(jax.jit(lambda: j_extract_aliased(j_normal_op,
+                                                                jcfg.output_size))))
     ours = precompute_gram_stencil(*_t(angles, shifts), cfg).numpy()
     assert ours.shape == ref.shape == (7, 9, 64, 64)
     np.testing.assert_allclose(ours, ref, atol=1e-5 * np.abs(ref).max())

@@ -52,8 +52,10 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     OptimizerConfig,
     SRConfig,
 )
+from test_torch_shear import run_fast
 
 torch.set_num_threads(2)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE_IMG = os.path.join(REPO, "test_images", "smoke_input.jpg")
@@ -123,11 +125,11 @@ def test_asr_step_matches_jax(params, model):
     class_id = _most_frequent_label(model, image)
     kw = dict(num_aug=4, feature_size=(16, 16), output_size=(64, 64),
               angle_max=0.15, num_iter=30, solver_impl="gram")
-    ref = j_asr_step(params, jnp.asarray(image), jnp.asarray(angles),
-                     jnp.asarray(shifts), JDeepLabConfig(**SMALL_MODEL),
-                     JSRConfig(**kw, optimizer=JOptimizerConfig(**SERVING_OPT)),
-                     class_id=class_id, th_factor=0.2, sr_types=("aug",),
-                     return_targets=True)
+    ref = run_fast(j_asr_step, params, jnp.asarray(image), jnp.asarray(angles),
+                   jnp.asarray(shifts), model_cfg=JDeepLabConfig(**SMALL_MODEL),
+                   sr_cfg=JSRConfig(**kw, optimizer=JOptimizerConfig(**SERVING_OPT)),
+                   class_id=class_id, th_factor=0.2, sr_types=("aug",),
+                   return_targets=True)
     ours = asr_step(model, torch.from_numpy(image), torch.from_numpy(angles),
                     torch.from_numpy(shifts),
                     SRConfig(**kw, optimizer=OptimizerConfig(**SERVING_OPT)),
@@ -301,7 +303,6 @@ def test_cli_flags_and_defaults_match_jax_cli():
 
 @pytest.mark.parametrize("flags", [
     ["--warp_impl", "gather"], ["--operator_impl", "staged"],
-    ["--profile_dir", "x"],
 ], ids=lambda f: " ".join(f))
 def test_main_rejects_flags_outside_the_slice(flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -372,8 +373,6 @@ def test_main_runs_the_flags_this_slice_ports(flags, files, series, tmp_path,
     (<name>_<type>_c<id>.png per class, the label maps) and IoU series.
     --label_map with one class exits with the JAX CLI's message."""
     monkeypatch.setattr(run_asr, "IMG_SIZE", (64, 64))
-    monkeypatch.setattr(run_asr, "FEATURE_SIZES", {"xception": (16, 16),
-                                                   "mobilenet": (8, 8)})
     monkeypatch.setattr(run_asr, "build_deeplab", _small_deeplab)
     gt_dir = tmp_path / "gt"
     gt_dir.mkdir()
@@ -413,8 +412,6 @@ def test_main_runs_batch_per_image_augs_and_fast(flags, n_files, steps, tmp_path
     from deeplabv3plus_augmented_superresolution_tpu_torch.data import native_loader
 
     monkeypatch.setattr(run_asr, "IMG_SIZE", (64, 64))
-    monkeypatch.setattr(run_asr, "FEATURE_SIZES", {"xception": (16, 16),
-                                                   "mobilenet": (8, 8)})
     monkeypatch.setattr(run_asr, "build_deeplab", _small_deeplab)
     in_dir = tmp_path / "in"
     in_dir.mkdir()

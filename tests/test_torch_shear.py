@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deeplabv3plus_augmented_superresolution_tpu.ops.resize import resize as j_resize
@@ -35,6 +36,32 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
 
 torch.set_num_threads(2)
 
+# The JAX references compile without most of XLA's optimisations (its
+# backend at level 0, as jax_disable_most_optimizations sets it): the 64-px
+# Xception forward compiles in ~1 s of CPU time against 5-6 s at level 1,
+# which spreads its codegen over threads. The arithmetic stays float32; the
+# results can differ from the default compile's in the last bits (6.8e-13 on
+# that forward's logits). EXACT_COMPILE (level 1) gives the default compile's
+# results bit for bit, for the references where those bits matter: the
+# random MobileNetV2's logits are ~1e-11, so they exceed 1e-4 of the scale
+# there, and the min-max normalization of the max stack amplifies them.
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+EXACT_COMPILE = dict(FAST_COMPILE, xla_backend_optimization_level=1)
+
+
+def run_fast(jitted, *args, options=FAST_COMPILE, **static):
+    """jitted (a jax.jit function) compiled with options for args and its
+    static keyword arguments, then called on args."""
+    return jitted.lower(*args, **static).compile(options)(*args)
+
+
+def pallas_interpret(images, s, n_cand):
+    """The reference's Pallas kernel in interpret mode, as one jitted program
+    (interpreted eagerly it dispatches op by op)."""
+    return run_fast(jax.jit(lambda im, sh: shear_rows_pallas(im, sh, n_cand, True)),
+                    images, s)
+
+
 BF16_ULP_AT_1 = 2.0 ** -8  # one bfloat16 ulp for values in [1, 2)
 
 
@@ -49,9 +76,13 @@ def _case(seed=0, n=3, h=64, w=64, coef=0.15, off=20.0):
     return images, s
 
 
+# The XLA path jitted once: one compile per shape, not one per op.
+_shear_rows_jit = jax.jit(_shear_rows, static_argnums=2)
+
+
 def _xla_shear(images, s, span=64):
-    return np.asarray(_shear_rows(jnp.asarray(images)[..., None],
-                                  jnp.asarray(s), span))[..., 0]
+    return np.asarray(_shear_rows_jit(jnp.asarray(images)[..., None], jnp.asarray(s),
+                                      span))[..., 0]
 
 
 @pytest.mark.parametrize("seed,off", [(0, 20.0), (1, 100.0), (4, 240.0)])
@@ -69,13 +100,12 @@ def test_shear_rows_matches_pallas_interpret_f32_and_bf16():
     rows: the interpret-mode kernel's cost grows with the rows."""
     images, s = _case(seed=2, h=16)
     n_cand = candidates_for(0.15)
-    ref = np.asarray(shear_rows_pallas(jnp.asarray(images), jnp.asarray(s), n_cand, True))
+    ref = np.asarray(pallas_interpret(jnp.asarray(images), jnp.asarray(s), n_cand))
     ours = shear_rows(torch.from_numpy(images), torch.from_numpy(s)).numpy()
     np.testing.assert_allclose(ours, ref, atol=1e-6)
 
-    ref16 = np.asarray(shear_rows_pallas(jnp.asarray(images, jnp.bfloat16),
-                                         jnp.asarray(s), n_cand, True)
-                       ).astype(np.float32)
+    ref16 = np.asarray(pallas_interpret(jnp.asarray(images, jnp.bfloat16),
+                                        jnp.asarray(s), n_cand)).astype(np.float32)
     ours16 = shear_rows(torch.from_numpy(images).to(torch.bfloat16),
                         torch.from_numpy(s))
     assert ours16.dtype == torch.bfloat16
@@ -92,19 +122,17 @@ def test_shear_budget_probe_at_240px():
     s = np.stack([ramp + 240.25, ramp - 239.5]).astype(np.float32)
     ours = shear_rows(torch.from_numpy(images), torch.from_numpy(s)).numpy()
     np.testing.assert_allclose(ours, _xla_shear(images, s, span=8), atol=1e-6)
-    pallas = np.asarray(shear_rows_pallas(jnp.asarray(images), jnp.asarray(s), 8, True))
+    pallas = np.asarray(pallas_interpret(jnp.asarray(images), jnp.asarray(s), 8))
     np.testing.assert_allclose(ours, pallas, atol=1e-6)
 
 
 def test_shear_backward_matches_jax_custom_vjp():
     """d/dx sum(shear(x)^2) through the autograd Function (backward = shift by
     -s) vs jax.grad through the reference's custom VJP; f32, 1e-5."""
-    import jax
-
     images, s = _case(seed=3)
-    g_jax = np.asarray(jax.grad(
-        lambda im: jnp.sum(_shear_rows(im[..., None], jnp.asarray(s), 64) ** 2)
-    )(jnp.asarray(images)))
+    g_jax = np.asarray(run_fast(jax.jit(jax.grad(
+        lambda im: jnp.sum(_shear_rows(im[..., None], jnp.asarray(s), 64) ** 2))),
+        jnp.asarray(images)))
     x = torch.from_numpy(images).requires_grad_(True)
     (shear_rows_dispatch(x, torch.from_numpy(s)) ** 2).sum().backward()
     np.testing.assert_allclose(x.grad.numpy(), g_jax, atol=1e-5)
@@ -174,15 +202,15 @@ def test_paeth_forward_and_inverse_match_jax(channels):
     angles, shifts = _warp_case()
     ours = paeth_rotate_translate(torch.from_numpy(imgs), torch.from_numpy(angles),
                                   torch.from_numpy(shifts), 0.35)
-    ref = np.asarray(j_paeth(jnp.asarray(imgs), jnp.asarray(angles),
-                             jnp.asarray(shifts), 0.35))
+    ref = np.asarray(run_fast(j_paeth, jnp.asarray(imgs), jnp.asarray(angles),
+                              jnp.asarray(shifts), angle_max=0.35))
     assert ours.shape == imgs.shape
     np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5)
 
     inv = paeth_inverse_rotate_translate(ours, torch.from_numpy(angles),
                                          torch.from_numpy(shifts), 0.35)
-    ref_inv = np.asarray(j_inverse(jnp.asarray(ref), jnp.asarray(angles),
-                                   jnp.asarray(shifts), 0.35))
+    ref_inv = np.asarray(run_fast(j_inverse, jnp.asarray(ref), jnp.asarray(angles),
+                                  jnp.asarray(shifts), angle_max=0.35))
     np.testing.assert_allclose(inv.numpy(), ref_inv, atol=2e-5)
 
 
@@ -197,16 +225,18 @@ def test_paeth_nearest_matches_jax_on_labels():
     ours = paeth_rotate_translate(torch.from_numpy(gt), torch.from_numpy(angles),
                                   torch.from_numpy(shifts), 0.35,
                                   interpolation="nearest").numpy()
-    ref = np.asarray(j_paeth(jnp.asarray(gt), jnp.asarray(angles),
-                             jnp.asarray(shifts), 0.35, interpolation="nearest"))
+    ref = np.asarray(run_fast(j_paeth, jnp.asarray(gt), jnp.asarray(angles),
+                              jnp.asarray(shifts), angle_max=0.35,
+                              interpolation="nearest"))
     np.testing.assert_array_equal(ours, ref)
     assert set(np.unique(ours)) <= {0.0, 8.0, 255.0}
 
     inv = paeth_inverse_rotate_translate(torch.from_numpy(gt), torch.from_numpy(angles),
                                          torch.from_numpy(shifts), 0.35,
                                          interpolation="nearest").numpy()
-    ref_inv = np.asarray(j_inverse(jnp.asarray(gt), jnp.asarray(angles),
-                                   jnp.asarray(shifts), 0.35, interpolation="nearest"))
+    ref_inv = np.asarray(run_fast(j_inverse, jnp.asarray(gt), jnp.asarray(angles),
+                                  jnp.asarray(shifts), angle_max=0.35,
+                                  interpolation="nearest"))
     np.testing.assert_array_equal(inv, ref_inv)
 
 

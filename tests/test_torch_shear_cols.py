@@ -17,10 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from deeplabv3plus_augmented_superresolution_tpu.ops.pallas_shear import (
-    candidates_for,
-    shear_rows_pallas,
-)
+from deeplabv3plus_augmented_superresolution_tpu.ops.pallas_shear import candidates_for
 from deeplabv3plus_augmented_superresolution_tpu.ops.shear_warp import (
     _shear_pass_y,
     shear_taps as j_shear_taps,
@@ -34,6 +31,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
     shear_rows,
     shear_rows_dispatch,
 )
+from test_torch_shear import pallas_interpret
 
 torch.set_num_threads(2)
 
@@ -57,7 +55,9 @@ def _s(coefs, offs):
     return pass_shifts(torch.from_numpy(coefs), torch.from_numpy(offs), CENTER, SIZE)
 
 
+@jax.jit
 def _jax_y_pass(images, coefs, offs):
+    """The JAX package's y pass, jitted (one compile, not one per op)."""
     span = j_shear_taps(0.35, SIZE)
     return _shear_pass_y(jnp.asarray(images)[..., None], jnp.asarray(coefs),
                          jnp.asarray(offs), CENTER, span, candidates_for(0.35))[..., 0]
@@ -81,9 +81,9 @@ def test_shear_cols_bf16_matches_pallas_interpret_on_swapped_axes():
     JAX y pass reaches it. Values lie in [0, 1): one ulp is at most 2**-8."""
     images, coefs, offs = _case(seed=3)
     s = _s(coefs, offs)
-    ref = np.asarray(jnp.swapaxes(shear_rows_pallas(
+    ref = np.asarray(jnp.swapaxes(pallas_interpret(
         jnp.swapaxes(jnp.asarray(images, jnp.bfloat16), 1, 2), jnp.asarray(s.numpy()),
-        candidates_for(0.35), True), 1, 2)).astype(np.float32)
+        candidates_for(0.35)), 1, 2)).astype(np.float32)
     ours = shear_cols(torch.from_numpy(images).to(torch.bfloat16), s)
     assert ours.dtype == torch.bfloat16
     np.testing.assert_allclose(ours.float().numpy(), ref, atol=2.0 ** -8)

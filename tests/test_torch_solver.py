@@ -44,8 +44,10 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     stencil_cache_key,
     threshold_image,
 )
+from test_torch_shear import run_fast
 
 torch.set_num_threads(2)
+
 
 SERVING = dict(learning_rate=1e-3, amsgrad=True, lr_scheduler=True,
                decay_steps=60, decay_rate=0.3)
@@ -110,7 +112,7 @@ def test_tv_and_btv_values_and_gradients_match_jax():
     x[0, 10:20, 10:20] = 0.5
     for j_fn, fn in ((j_grad.total_variation, gradients.total_variation),
                      (j_grad.bilateral_tv, gradients.bilateral_tv)):
-        jv, jg = jax.value_and_grad(j_fn)(jnp.asarray(x))
+        jv, jg = run_fast(jax.jit(jax.value_and_grad(j_fn)), jnp.asarray(x))
         z = torch.from_numpy(x).requires_grad_(True)
         v = fn(z)
         (g,) = torch.autograd.grad(v, z)
@@ -169,10 +171,11 @@ def test_gram_solve_matches_jax():
     cfg = SRConfig(**kw, optimizer=OptimizerConfig(**SERVING))
     gt = np.zeros((1, 64, 64, 1), np.float32)
     gt[0, 20:44, 16:48] = 1.0
-    masks = np.array(j_forward_operator(jnp.asarray(gt), jnp.asarray(angles),
-                                        jnp.asarray(shifts), (16, 16), jcfg))
-    ref, ref_loss = j_asr(jnp.asarray(masks), jnp.asarray(angles),
-                          jnp.asarray(shifts), jcfg)
+    masks = np.array(run_fast(jax.jit(lambda g, a, s: j_forward_operator(g, a, s, (16, 16),
+                                                                         jcfg)),
+                              jnp.asarray(gt), jnp.asarray(angles), jnp.asarray(shifts)))
+    ref, ref_loss = run_fast(j_asr, jnp.asarray(masks), jnp.asarray(angles),
+                             jnp.asarray(shifts), cfg=jcfg)
     ours, loss = augmented_superresolution(torch.from_numpy(masks),
                                            torch.from_numpy(angles),
                                            torch.from_numpy(shifts), cfg)

@@ -43,8 +43,10 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     sr_loss,
 )
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr.solver import _gram_system
+from test_torch_shear import FAST_COMPILE, run_fast
 
 torch.set_num_threads(2)
+
 
 N = 6
 SERVING = dict(learning_rate=1e-3, amsgrad=True, lr_scheduler=True, decay_steps=60,
@@ -108,12 +110,16 @@ def jax_refs(problem, stencil):
     key = jax.random.key(1)
     jcfg_mb, _ = _configs(solver_impl="direct", **MINIBATCH)
     return {
-        "direct": j_asr(masks, angles, shifts, _configs(solver_impl="direct")[0]),
-        "minibatch": j_asr(masks, angles, shifts, jcfg_mb, dropout_key=key),
+        "direct": run_fast(j_asr, masks, angles, shifts,
+                           cfg=_configs(solver_impl="direct")[0]),
+        "minibatch": j_asr.lower(masks, angles, shifts, cfg=jcfg_mb, dropout_key=key)
+                          .compile(FAST_COMPILE)(masks, angles, shifts, dropout_key=key),
         "perm": np.array(jax.random.permutation(jax.random.fold_in(key, 997), N)),
         "weights": np.array(j_dropout_weights(key, jcfg_mb)),
-        "cg": j_asr(masks, angles, shifts, _configs(**CG)[0],
-                    gram_coeffs=jnp.asarray(stencil)),
+        "cg": j_asr.lower(masks, angles, shifts, cfg=_configs(**CG)[0],
+                          gram_coeffs=jnp.asarray(stencil))
+                   .compile(FAST_COMPILE)(masks, angles, shifts,
+                                          gram_coeffs=jnp.asarray(stencil)),
     }
 
 

@@ -96,6 +96,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
     warp_augment_batch_with_draws)
 from deeplabv3plus_augmented_superresolution_tpu_torch.utils.checkpoint import (
     load_train_state, restore_opt_state, save_train_state)
+from test_torch_shear import FAST_COMPILE
 
 torch.set_num_threads(2)
 
@@ -154,14 +155,6 @@ def _conditioned_start(params):
     return params
 
 
-def _jit(fn, *args):
-    """jax.jit(fn) compiled for args without most of XLA's optimisations,
-    as jax_disable_most_optimizations does (the train step compiles in half
-    the time; the arithmetic is still float32)."""
-    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0,
-                                             "xla_llvm_disable_expensive_passes": True})
-
-
 @pytest.fixture(scope="module")
 def setup():
     """The JAX references of the module: the conditioned start and two
@@ -175,7 +168,8 @@ def setup():
     batch = (jnp.asarray(images), jnp.asarray(labels))
     states = [(params, (optax.TraceState(trace=jax.tree.map(np.zeros_like, params)),
                         optax.EmptyState()))]   # tx.init(params), without running it
-    step = _jit(j_build_train_step(jcfg, tx), *states[0], *batch)
+    step = jax.jit(j_build_train_step(jcfg, tx)).lower(*states[0], *batch).compile(
+        FAST_COMPILE)
     losses = []
     for _ in range(2):
         p, o, loss = step(*states[-1], *batch)
