@@ -28,7 +28,14 @@ order, each phase raising on failure:
      so a batch launches what one image does), ``--per_image_augs`` (each
      image its own set, so each solve extracts its stencil: 35 probes of
      the operator), ``--fast`` (the direct solver on 25-copy windows, 60
-     steps, the operator forward and backward in every step). With
+     steps, the operator forward and backward in every step). Then the
+     gather warp and the staged operator (one class, aug + max + mean,
+     each stencil first checked as in 3): ``serve-staged``
+     (--operator_impl staged), ``serve-staged-per-image-augs``,
+     ``serve-gather`` (--warp_impl gather: no kernel launch) and
+     ``solve-staged-bf16`` (the direct solver on the staged operator in
+     bf16, a library configuration), each with its masks' IoU against the
+     fused path on the first image and its targets finite. With
      --stage-trace, also a torch.profiler window around the stages
      ``warp`` and ``b`` of two more images: device kernels and device time
      of each;
@@ -71,7 +78,9 @@ order, each phase raising on failure:
      A case that moves less than ROTATE_BYTES is timed on a ring of inputs
      and outputs that together exceed the card's L2, so that its time is
      one of memory, not of the cache;
-     The training layouts are there too: a batch of 8 images (3 planes each,
+     The staged operator's full-resolution passes on one target plane
+     (stride 0 over the copies), f32 and bf16, are there, and the
+     training layouts too: a batch of 8 images (3 planes each,
      its own shifts) and of 8 label maps (integer shifts: the nearest mode,
      held exactly), at 128 and 512 px; and the robustness grid's: 16 images
      of 3 planes and 16 label maps sharing one combination's shifts;
@@ -80,7 +89,8 @@ order, each phase raising on failure:
      ``asr_step_multiclass`` of 3 classes with the label map, unchunked and
      in class groups of 2, and of a batch of 2 images; MobileNetV2;
      ``asr_step`` with the IRLS-CG solver and with the direct solver on
-     copy minibatches; one train step of MobileNetV2 (alpha 0.35, 32 px,
+     copy minibatches; the staged (f32, bf16) and gather operators'
+     forward and adjoint; one train step of MobileNetV2 (alpha 0.35, 32 px,
      f32) and ``warp_augment_batch`` with given draws; the evaluation
      cores (staging in every mode, standard masks, score_image,
      threshold_ious, robustness_grid) at 64 px.
@@ -182,6 +192,28 @@ BF16_STACK_RTOL = 0.05
 # Card vs CPU, the evaluation cores at 64 px in f32: IoUs to 1e-3, raw logit
 # stacks to 1e-2 of their scale (random-init logits are ~1e-6).
 EVAL_IOU_ATOL = 1e-3
+# This slice's full-width paths (the staged operator, the gather warp, the
+# bf16 solve), one class, aug + max + mean, and the images of each.
+SLICE_SR_TYPES = ("aug", "max", "mean")
+STAGED_IMAGES = 3
+STAGED_PER_IMAGE_IMAGES = 2
+GATHER_IMAGES = 3
+BF16_SOLVE_IMAGES = 3
+# A path's masks against the fused/shear path's on the same image: the
+# operators differ at the interpolation level (staged vs fused decimation,
+# two-pass gathers vs shears, a bf16 warp, the direct solver vs the stencil,
+# which follow the same trajectory in exact arithmetic), so the masks
+# overlap; a wrong warp (a transposed or inverted transform) would not.
+SLICE_MIN_IOU = 0.5
+# The staged and gather operators at 64 px, card vs CPU: the forward A x
+# within the bound below, the adjoint A^T y (cotangent in [0, 1]) within it
+# times the copies. Shear f32: the kernel is within 1e-5 of the plain version
+# per pass, three passes, plus the resize matmul's f32 sums (TF32 off). Shear
+# bf16: each of the three passes may round one bf16 ulp (2 ** -8 below 1)
+# apart. Gather: the same IEEE operations on both, but cos and sin differ by
+# an f32 ulp on the card, which moves sample points by ~1e-5 px.
+OPERATOR_SMALL_ATOL = {"staged shear f32": 5e-5, "staged shear bf16": 3 * 2.0 ** -8,
+                       "gather": 5e-5}
 # Length of the spin kernel ahead of each timing window (about 2 ms at the
 # card's clock): long enough for the host to enqueue the window behind it.
 SPIN_CYCLES = 4_000_000
@@ -344,6 +376,17 @@ def kernel_cases(device, angles, shifts):
          (100, 20, 512, 512), f32, si_c, "dense", False, False),
         ("budget probe +-240 (2,128,512) f32", "shear_rows", (2, 128, 512), f32, probe,
          "dense", False, False),
+        # the staged operator: all three passes at full resolution on one
+        # target plane read by every copy, f32 and (solve_dtype bf16) bf16;
+        # the dense x pass is also pass 1's backward
+        ("staged pass 1 (100,1,512,512) f32 from one stride-0 plane", "shear_rows",
+         (100, 1, 512, 512), f32, s_a, "stride0", False, False),
+        ("staged pass 1 (100,1,512,512) bf16 from one stride-0 plane", "shear_rows",
+         (100, 1, 512, 512), bf16, s_a, "stride0", False, False),
+        ("staged pass 3 and pass 1 backward (100,1,512,512) f32", "shear_rows",
+         (100, 1, 512, 512), f32, s_c3, "dense", False, False),
+        ("staged pass 3 and pass 1 backward (100,1,512,512) bf16", "shear_rows",
+         (100, 1, 512, 512), bf16, s_c3, "dense", False, False),
         # --batch 4: the copies warp of 4 images (12 planes), b on 4 planes
         ("copies warp x pass 1, batch of 4 (100,12,512,512) bf16 from 4 stride-0 "
          "images", "shear_rows", (100, 12, 512, 512), bf16, s_a, "stride0", False, False),
@@ -377,6 +420,10 @@ def kernel_cases(device, angles, shifts):
          (100, 4, 512, 512), f32, s_b, "dense", False, False),
         ("direct solver pass B (25,512,512) f32", "shear_cols", (25, 512, 512), f32,
          s_b[:25], "dense", False, False),
+        ("staged y pass (100,1,512,512) f32", "shear_cols", (100, 1, 512, 512), f32, s_b,
+         "dense", False, False),
+        ("staged y pass (100,1,512,512) bf16", "shear_cols", (100, 1, 512, 512), bf16, s_b,
+         "dense", False, False),
         ("edge probe +-240 (2,512,128) f32", "shear_cols", (2, 512, 128), f32, probe,
          "dense", False, False),
         ("edge probe +-240 (2,3,512,128) bf16", "shear_cols", (2, 3, 512, 128), bf16,
@@ -748,7 +795,9 @@ def expected_launches(sr_types, groups: int = 1, probes: int = 0,
     forward and one backward in each step of the direct solver
     (``direct_steps``); and one inverse warp (three passes) when "max" or
     "mean" is served. The K classes of a group ride the channel axis too, so
-    K does not count; groups = ceil(K / class_chunk), 1 when unchunked."""
+    K does not count; groups = ceil(K / class_chunk), 1 when unchunked. The
+    staged operator launches the fused one's three passes (at full
+    resolution); the gather warp launches none."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.fused_operator import (
         OPERATOR_LAUNCHES)
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
@@ -811,7 +860,7 @@ def serve_path(label, device, images, model, sr_cfg, coeffs, expected, **kw):
             or len(summary["mask_fractions"]) != n_images):
         raise AssertionError(f"[{label}] not every image was served")
     for name, count in launches.items():
-        if count <= 0 or count != expected[name] * n_steps:
+        if count != expected[name] * n_steps:
             raise AssertionError(f"[{label}] {count} {name} launches, expected "
                                  f"{expected[name] * n_steps}")
     for name, fr in summary["mask_fractions"].items():
@@ -925,6 +974,141 @@ def phase_serve_new_paths(device, model, images, coeffs, sr_cfg, class_id, angle
     profile_path("serve-fast", device, images[:2], model, fast_cfg, None,
                  class_id=class_id)
     return paths
+
+
+def _iou(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a > 0, b > 0
+    union = int((a | b).sum())
+    return 1.0 if union == 0 else int((a & b).sum()) / union
+
+
+def phase_serve_staged_gather(device, model, images, coeffs, sr_cfg, class_id,
+                              angles, shifts):
+    """This slice's paths at full width (Xception OS16, bf16, 512 px, 100
+    copies, 300 AMSGrad steps, one class, aug + max + mean), each through
+    ``run_asr.serve`` with its launches asserted per image:
+    ``serve-staged`` (--operator_impl staged: the shear warp at full
+    resolution, then the resize; its stencil extracted once through it),
+    ``serve-staged-per-image-augs`` (each image extracts its own: 35 probes
+    of the staged operator), ``serve-gather`` (--warp_impl gather: the
+    copies, the operator and the inverse warp by gathers, no kernel
+    launch) and ``solve-staged-bf16`` (the direct solver on the staged
+    operator warping in bf16: a library configuration, as no CLI sets
+    solve_dtype), each followed by a synchronised profile of two images.
+    Then each path's masks on the first image against the fused/shear
+    path's (IoU, on the image's own set for per_image_augs) and its
+    continuous targets finite."""
+    import dataclasses
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import SEED
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import (
+        RADIUS_X, RADIUS_Y)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+        asr_step, sample_augmentations)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline.augment import (
+        image_generator)
+
+    staged = dataclasses.replace(sr_cfg, operator_impl="staged")
+    gather = dataclasses.replace(sr_cfg, warp_impl="gather")
+    bf16 = dataclasses.replace(staged, solve_dtype="bfloat16", solver_impl="direct")
+    staged_coeffs = phase_stencil(device, angles, shifts, staged, "Xception staged")
+    gather_coeffs = phase_stencil(device, angles, shifts, gather, "Xception gather")
+    probes = (2 * RADIUS_Y + 1) * (RADIUS_X + 1)
+    runs = {
+        "serve-staged": (staged, staged_coeffs, STAGED_IMAGES, {},
+                         expected_launches(SLICE_SR_TYPES),
+                         {"shear_rows": 8, "shear_cols": 4}),
+        "serve-staged-per-image-augs": (
+            staged, None, STAGED_PER_IMAGE_IMAGES, {"per_image_augs": True},
+            expected_launches(SLICE_SR_TYPES, probes=probes),
+            {"shear_rows": 148, "shear_cols": 74}),
+        "serve-gather": (gather, gather_coeffs, GATHER_IMAGES, {},
+                         {name: 0 for name in KERNELS},
+                         {"shear_rows": 0, "shear_cols": 0}),
+        "solve-staged-bf16": (bf16, None, BF16_SOLVE_IMAGES, {},
+                              expected_launches(SLICE_SR_TYPES,
+                                                direct_steps=bf16.num_iter),
+                              {"shear_rows": 1204, "shear_cols": 602}),
+    }
+    paths = {}
+    for label, (cfg, stencil, n, kw, expected, design) in runs.items():
+        if expected != design:
+            raise AssertionError(f"[{label}] the per-image split moved: {expected}")
+        paths[label] = serve_path(label, device, images[:n], model, cfg, stencil,
+                                  expected, class_id=class_id, sr_types=SLICE_SR_TYPES,
+                                  **kw)
+        profile_path(label, device, images[:2], model, cfg, stencil, class_id=class_id,
+                     sr_types=SLICE_SR_TYPES, **kw)
+
+    name, image = images[0]
+    image = torch.as_tensor(image, device=device)
+    own = sample_augmentations(image_generator(SEED, name), sr_cfg.num_aug, 0.15, 80.0,
+                               device=device)
+
+    def step(cfg, stencil, tta):
+        out = asr_step(model, image, *tta, cfg, class_id, th_factor=0.2,
+                       sr_types=SLICE_SR_TYPES, gram_coeffs=stencil, return_targets=True)
+        for key in SLICE_SR_TYPES:
+            target = out[f"{key}_target"]
+            shape = (*cfg.output_size, 1)
+            if tuple(target.shape) != shape or not bool(torch.isfinite(target).all()):
+                raise AssertionError(f"[{cfg.operator_impl}/{cfg.warp_impl}] {key} target "
+                                     f"is not a finite {shape} map")
+        return out
+
+    shared = (angles, shifts)
+    fused = {"shared": step(sr_cfg, coeffs, shared), "own": step(sr_cfg, None, own)}
+    for label, (cfg, stencil, _, kw, _, _) in runs.items():
+        tta = "own" if kw.get("per_image_augs") else "shared"
+        out = step(cfg, stencil if tta == "shared" else None,
+                   own if tta == "own" else shared)
+        ious = {key: _iou(out[key], fused[tta][key]) for key in SLICE_SR_TYPES}
+        fractions = {key: round(float((out[key] > 0).float().mean()), 4)
+                     for key in SLICE_SR_TYPES}
+        log(f"[{label}] {name}: IoU against the fused/shear path "
+            f"{json.dumps({k: round(v, 4) for k, v in ious.items()})} (bound "
+            f"{SLICE_MIN_IOU}), mask fractions {json.dumps(fractions)}, targets finite")
+        if min(ious.values()) < SLICE_MIN_IOU:
+            raise AssertionError(f"[{label}] masks differ from the fused/shear path's")
+        paths[label]["iou_vs_fused"] = ious
+    return paths
+
+
+def phase_operator_small(device):
+    """The staged operator (shear f32, shear bf16) and the gather operator on
+    the card against the same calls on the CPU (the plain versions), at 64
+    px: 4 copies, 2 target planes, the forward A x and the adjoint A^T y
+    through autograd, within OPERATOR_SMALL_ATOL (the adjoint times the
+    copies)."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+        sample_augmentations)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
+        SRConfig, forward_operator)
+
+    rng = np.random.default_rng(11)
+    planes = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64)).astype(np.float32))
+    cot = torch.from_numpy(rng.uniform(0, 1, (4, 16, 16, 2)).astype(np.float32))
+    angles, shifts = sample_augmentations(torch.Generator().manual_seed(4), 4, 0.3, 8.0,
+                                          device="cpu")
+    configs = {"staged shear f32": dict(operator_impl="staged"),
+               "staged shear bf16": dict(operator_impl="staged", solve_dtype="bfloat16"),
+               "gather": dict(warp_impl="gather")}
+    for label, kw in configs.items():
+        cfg = SRConfig(num_aug=4, feature_size=(16, 16), output_size=(64, 64), **kw)
+        results = []
+        for dev in (torch.device("cpu"), device):
+            x = planes.to(dev).requires_grad_(True)
+            out = forward_operator(x, angles.to(dev), shifts.to(dev), (16, 16), cfg)
+            (adj,) = torch.autograd.grad(out, x, cot.to(dev))
+            results.append((out.detach().cpu(), adj.cpu()))
+        (cpu_out, cpu_adj), (gpu_out, gpu_adj) = results
+        fwd_err = float((cpu_out - gpu_out).abs().max())
+        adj_err = float((cpu_adj - gpu_adj).abs().max())
+        tol = OPERATOR_SMALL_ATOL[label]
+        log(f"[operator-small] {label}: A x max err {fwd_err:.3g} (bound {tol:.3g}), "
+            f"A^T y max err {adj_err:.3g} (bound {4 * tol:.3g})")
+        if not (fwd_err <= tol and adj_err <= 4 * tol):
+            raise AssertionError(f"[operator-small] {label}: card and CPU disagree")
 
 
 def phase_serve_multiclass(device, model, images, coeffs, sr_cfg, angles, shifts):
@@ -1730,6 +1914,8 @@ def main() -> None:
     check_target(model, device, images[0][1], class_id, coeffs, sr_cfg, angles, shifts)
     paths.update(phase_serve_new_paths(device, model, images, coeffs, sr_cfg, class_id,
                                        angles, shifts))
+    paths.update(phase_serve_staged_gather(device, model, images, coeffs, sr_cfg,
+                                           class_id, angles, shifts))
     paths["serve-20-classes"], paths["serve-20-classes-chunked"] = phase_serve_multiclass(
         device, model, images[:MULTI_IMAGES], coeffs, sr_cfg, angles, shifts)
     if args.stage_trace:
@@ -1754,6 +1940,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernel_results = phase_kernel(device, angles, shifts)
     phase_small_e2e(device)
+    phase_operator_small(device)
     phase_train_small(device)
     phase_eval_small(device)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")

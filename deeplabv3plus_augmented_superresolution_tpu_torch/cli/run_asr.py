@@ -10,8 +10,7 @@ image instead (each solve then extracts its own stencil); ``--fast`` is the
 minibatched direct solver's preset. Images are decoded by the native ring
 (``data/native_loader.py``) where it builds, else by a Python lookahead, and
 staged to the card by a thread: pinned host memory, a side stream. Xception
-or MobileNetV2. The same flag names and defaults; flags that select paths
-not ported yet raise a clear error.
+or MobileNetV2. The same flag names and defaults, every flag ported.
 
   python -m deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr \\
       --images test_images/smoke_input.jpg --gt_dir <dir of <name>.png>
@@ -40,7 +39,7 @@ from ..pipeline.augment import image_generator
 from ..pipeline.end_to_end import SR_TYPES
 from ..sr import SRConfig, load_stencil, precompute_gram_stencil, save_stencil
 from ..utils.profiling import StageTimer, trace_to
-from ._common import (IMG_SIZE, NOT_PORTED, SEED, add_device_arg, add_sr_args,
+from ._common import (IMG_SIZE, SEED, add_device_arg, add_sr_args,
                       build_deeplab, feature_size_of, make_sr_config, reads_one_stencil)
 
 DEFAULT_CACHE_DIR = os.path.join(
@@ -122,15 +121,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _unported_flags(args) -> List[str]:
-    """One message per flag that selects a path the port does not have."""
-    checks = [
-        (args.warp_impl != "shear", "--warp_impl gather", "ops/warp.py"),
-        (args.operator_impl != "fused", "--operator_impl staged", "ops/warp.py"),
-    ]
-    return [f"{flag} {NOT_PORTED.format(item)}" for bad, flag, item in checks if bad]
-
-
 def apply_fast_preset(args: argparse.Namespace) -> None:
     """--fast: at most 60 steps, lr at least 1e-2 decaying 10x over a fifth
     of the steps, 25-copy minibatches (the JAX CLI's preset)."""
@@ -159,14 +149,11 @@ def parse_sr_types(spec: str) -> Tuple[str, ...]:
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    """Parse and validate: flags outside the ported slice exit with an error,
-    and so do --label_map without several classes and 'aug' and --batch with
-    --per_image_augs; --fast applies its preset."""
+    """Parse and validate: --label_map without several classes and 'aug' and
+    --batch with --per_image_augs exit with the JAX CLI's messages; --fast
+    applies its preset."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    problems = _unported_flags(args)
-    if problems:
-        parser.error("; ".join(problems))
     if args.fast:
         apply_fast_preset(args)
     sr_types = parse_sr_types(args.sr_types)

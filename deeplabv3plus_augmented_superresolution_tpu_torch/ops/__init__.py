@@ -8,6 +8,8 @@ from .opm import (extract_masks, extract_masks_multiclass, min_max_normalization
                   normalize_stack, prepare_sr_inputs)
 from .gradients import (bilateral_tv, image_gradients, image_gradients_transpose,
                         total_variation)
+from .warp import (affine_warp, compose_transforms, rotate, rotate_translate_fused,
+                   rotation_transform, translate, translation_transform)
 
 __all__ = [
     "resize",
@@ -31,4 +33,11 @@ __all__ = [
     "image_gradients",
     "image_gradients_transpose",
     "total_variation",
+    "affine_warp",
+    "compose_transforms",
+    "rotate",
+    "rotate_translate_fused",
+    "rotation_transform",
+    "translate",
+    "translation_transform",
 ]

@@ -29,7 +29,7 @@ from .shear_warp import (paeth_coefficients, pass_shifts, shear_cols_dispatch,
 OPERATOR_LAUNCHES = {"shear_rows": 2, "shear_cols": 1}
 
 
-def _target_planes(target: torch.Tensor) -> torch.Tensor:
+def target_planes(target: torch.Tensor) -> torch.Tensor:
     """(H, W), (K, H, W) or (1, H, W, K) -> contiguous (K, H, W) planes (a
     no-op for (H, W), (1, H, W, 1) and (K, H, W) unless the caller's tensor
     is a strided view)."""
@@ -58,7 +58,7 @@ def fused_warp_downsample(target: torch.Tensor, angles: torch.Tensor,
     nothing here.
     """
     del angle_max
-    img = _target_planes(target)                                   # (K, H, W)
+    img = target_planes(target)                                    # (K, H, W)
     k, h, w = img.shape
     hl, wl = feature_size
     if hl > h or wl > w:

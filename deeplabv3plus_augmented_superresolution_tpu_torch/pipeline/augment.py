@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 
 from ..ops.shear_warp import paeth_planes, paeth_rotate_translate
+from ..ops.warp import rotate_translate_planes
 
 
 def sample_augmentations(generator: torch.Generator, num_aug: int,
@@ -44,9 +45,11 @@ def make_augmented_copies(image: torch.Tensor, angles: torch.Tensor,
                           shifts: torch.Tensor, num_aug: int,
                           warp_impl: str = "shear",
                           angle_max: float = 0.35) -> torch.Tensor:
-    """(H, W, C) image -> (num_aug, H, W, C) rotated+translated copies, in the
-    image's dtype. angle_max is accepted for parity with the reference and
-    bounds nothing here.
+    """(H, W, C) image -> (num_aug, H, W, C) rotated+translated copies:
+    warp_impl "shear" (the three shear passes, in the image's dtype) or
+    "gather" (the reference's two-pass tfa warp, rotate then translate, in
+    float32 as the reference promotes a bfloat16 image). angle_max is
+    accepted for parity with the reference and bounds nothing here.
 
     (B, H, W, C) images sharing one augmentation set -> (num_aug, B, H, W, C),
     copy-major: the B x C planes ride the kernels' channel axis, read from
@@ -54,14 +57,16 @@ def make_augmented_copies(image: torch.Tensor, angles: torch.Tensor,
     passes once whatever B is. The result is a view of a dense
     (num_aug, B, C, H, W) tensor, so flattening its first two axes is free."""
     del angle_max
-    if warp_impl != "shear":
-        raise NotImplementedError("the gather warp is not ported yet "
-                                  "(ROADMAP Queue 1: 'ops/warp.py')")
     if image.dim() == 3:
-        return make_augmented_copies(image[None], angles, shifts, num_aug)[:, 0]
+        return make_augmented_copies(image[None], angles, shifts, num_aug,
+                                     warp_impl)[:, 0]
     b, h, w, c = image.shape
     planes = image.permute(0, 3, 1, 2).reshape(b * c, h, w).contiguous()
-    out = paeth_planes(planes[None].expand(num_aug, b * c, h, w), angles, shifts)
+    batched = planes[None].expand(num_aug, b * c, h, w)
+    if warp_impl == "shear":
+        out = paeth_planes(batched, angles, shifts)
+    else:
+        out = rotate_translate_planes(batched, angles, shifts)
     return out.view(num_aug, b, c, h, w).permute(0, 1, 3, 4, 2)
 
 

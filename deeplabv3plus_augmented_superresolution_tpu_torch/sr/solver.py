@@ -16,8 +16,12 @@ kernels), the last also with copy minibatching (``sgd_copies``). Copy
 dropout weights the copies 0/1 on every path. Each loop is a Python loop of
 eager steps (the reference's lax.scan); a leading class axis runs K solves
 in the same steps (the reference's vmap). max/mean SR reduce the
-inverse-warped copies. Aug-axis padding (``num_valid``) raises until
-``parallel/`` is ported.
+inverse-warped copies. The operator is fused (the decimations inside the
+shear chain) or staged (the warp at full resolution, then the resize), the
+warp the shear passes or the gather warp of ``ops/warp.py``
+(``warp_impl="gather"``, always staged); the staged operator warps in
+bfloat16 with ``solve_dtype="bfloat16"``. Aug-axis padding (``num_valid``)
+raises until ``parallel/`` is ported.
 
 Random draws (the dropout mask, the minibatch order) come from a
 ``torch.Generator``, whose stream differs from jax.random's, so the tests
@@ -30,20 +34,20 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..ops.fused_operator import fused_warp_downsample
+from ..ops.fused_operator import fused_warp_downsample, target_planes
 from ..ops.gradients import (abs_, bilateral_tv, image_gradients,
                               image_gradients_transpose, total_variation)
 from ..ops.gram import (RADIUS_X, RADIUS_Y, apply_gram, extract_gram_stencil,
                         extract_gram_stencil_aliased, stencil_weights)
 from ..ops.resize import resize, resize_hw
 from ..ops.shear_warp import inverse_shifts, paeth_planes
+from ..ops.warp import inverse_rotate_translate_planes, rotate_translate_planes
 from .optimizer import OptimizerConfig, make_optimizer
 
 SOLVERS = ("gram", "cg", "direct")
 # Seed of the minibatch order when the solve is given no generator (the
 # reference folds 997 into its default key, so its order is fixed too).
 MINIBATCH_SEED = 997
-NOT_PORTED_GATHER = "ROADMAP Queue 1: 'ops/warp.py'"
 NOT_PORTED_PADDING = "ROADMAP Queue 1: 'parallel/'"
 
 
@@ -82,21 +86,58 @@ def _stage(timer, name: str):
     return timer.stage(name) if timer is not None else contextlib.nullcontext()
 
 
+class _CastExpand(torch.autograd.Function):
+    """(K, H, W) float32 planes -> (n, K, H, W) in dtype, stride 0 over the
+    copies: the reference's broadcast then astype, without writing n copies.
+    The gradient converts each copy's cotangent to float32 before summing
+    over the copies, as the reference's transposes do."""
+
+    @staticmethod
+    def forward(ctx, planes, n, dtype):
+        return planes.to(dtype)[None].expand(n, *planes.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.sum(0, dtype=torch.float32), None, None
+
+
+def _warp_batch(planes: torch.Tensor, angles: torch.Tensor, shifts: torch.Tensor,
+                cfg: SRConfig) -> torch.Tensor:
+    """Copy n of the (N, K, H, W) stack warped by (angles[n], shifts[n]): the
+    three shear passes (input dtype), or the two-pass gather warp (float32)."""
+    if cfg.warp_impl == "shear":
+        return paeth_planes(planes, angles, shifts)
+    return rotate_translate_planes(planes, angles, shifts)
+
+
 def forward_operator(target: torch.Tensor, angles: torch.Tensor,
                      shifts: torch.Tensor, feature_size,
                      cfg: Optional[SRConfig] = None) -> torch.Tensor:
     """A(x): per-copy warp of the HR estimate + bilinear downsample.
 
-    target: (1, H, W, 1), or K planes (K, H, W); returns (N, h, w, K)."""
-    if cfg is None or cfg.warp_impl != "shear":
-        raise NotImplementedError(f"the gather warp is not ported yet ({NOT_PORTED_GATHER})")
+    target: (1, H, W, 1), or K planes (K, H, W); returns (N, h, w, K).
+    operator_impl "fused" with the shear warp folds the decimations into
+    the shear chain; otherwise the operator is staged: the warp at full
+    resolution (in bfloat16 when solve_dtype is "bfloat16"), then the
+    resize. cfg None is the reference's default, the staged gather warp."""
+    if cfg is None:
+        cfg = SRConfig(feature_size=tuple(feature_size),
+                       output_size=tuple(target.shape[-2:] if target.dim() == 3
+                                         else target.shape[-3:-1]),
+                       warp_impl="gather")
     if cfg.num_valid and cfg.num_valid != cfg.num_aug:
         raise NotImplementedError(f"aug-axis padding is not ported yet ({NOT_PORTED_PADDING})")
-    if cfg.operator_impl != "fused":
-        raise NotImplementedError(f"operator_impl={cfg.operator_impl!r} is not ported "
-                                  f"yet ({NOT_PORTED_GATHER}); use 'fused'")
-    return fused_warp_downsample(target, angles, shifts, tuple(feature_size),
-                                 cfg.angle_max)
+    if cfg.operator_impl == "fused" and cfg.warp_impl == "shear":
+        return fused_warp_downsample(target, angles, shifts, tuple(feature_size),
+                                     cfg.angle_max)
+    planes = target_planes(target)
+    n = angles.shape[0]
+    if cfg.solve_dtype == "bfloat16":
+        batched = _CastExpand.apply(planes, n, torch.bfloat16)
+    else:
+        batched = planes[None].expand(n, *planes.shape)
+    warped = _warp_batch(batched, angles, shifts, cfg).float()
+    return resize_hw(warped, feature_size, "bilinear").permute(0, 2, 3, 1)
 
 
 def _normal_op(fwd: Callable[[torch.Tensor], torch.Tensor]):
@@ -449,14 +490,15 @@ def _inverse_warp(lr_masks: torch.Tensor, angles, shifts, cfg: SRConfig) -> torc
     """Shared body of max/mean SR: upsample every copy of every class, then
     undo translation and rotation. lr_masks (K, N, h, w, 1) -> a dense
     (N, K, H, W) stack: the K planes of copy n share its inverse warp, so the
-    three kernel launches of one warp serve every class."""
-    if cfg.warp_impl != "shear":
-        raise NotImplementedError(f"the gather warp is not ported yet ({NOT_PORTED_GATHER})")
+    three kernel launches of one warp serve every class (the gather warp,
+    warp_impl "gather", launches none)."""
     if cfg.n_valid != cfg.num_aug:  # padded copies would need masking out
         raise NotImplementedError(f"aug-axis padding is not ported yet ({NOT_PORTED_PADDING})")
-    up = resize_hw(lr_masks[..., 0], cfg.output_size, "bilinear")   # (K, N, H, W)
+    up = resize_hw(lr_masks[..., 0], cfg.output_size, "bilinear").transpose(0, 1)
+    if cfg.warp_impl != "shear":
+        return inverse_rotate_translate_planes(up, angles, shifts)
     inv_angles, inv_shifts = inverse_shifts(angles, shifts)
-    return paeth_planes(up.transpose(0, 1), inv_angles, inv_shifts)
+    return paeth_planes(up, inv_angles, inv_shifts)
 
 
 @torch.no_grad()

@@ -42,7 +42,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     precompute_gram_stencil,
 )
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE_IMG = os.path.join(REPO, "test_images", "smoke_input.jpg")

@@ -31,13 +31,19 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
     asr_step,
     asr_step_multiclass,
 )
+from deeplabv3plus_augmented_superresolution_tpu_torch.ops.warp import (
+    rotation_transform,
+    translation_transform,
+    warp_planes,
+)
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     SRConfig,
+    forward_operator,
     multiclass_max_mean_superresolution,
     precompute_gram_stencil,
 )
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -403,6 +409,91 @@ def _conditioned_start(cfg):
             entry["beta"] = (rng.choice([-1.0, 1.0], n)
                              * rng.uniform(1.0, 2.0, n)).astype(np.float32)
     return params
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+def test_staged_bf16_layouts_forward_and_backward(cuda_device, axis):
+    """The staged operator's bf16 layouts (solve_dtype bfloat16): one bf16
+    target plane read by 8 copies through a stride-0 axis (the x pass), the
+    dense (8, 1, H, W) bf16 planes (the y pass), and each backward, the same
+    kernel with -s on a dense bf16 cotangent: within one bf16 ulp of the
+    plain version's f32 result."""
+    _, dispatch, plain = AXES[axis]
+    images, s = _axis_case(axis, n=8, h=256, w=256, seed=11)
+    x = images[:1, None].to(cuda_device, torch.bfloat16)
+    x = x.expand(8, 1, 256, 256) if axis == "rows" else images[:, None].to(
+        cuda_device, torch.bfloat16)
+    st = s.to(cuda_device)
+    g = torch.rand((8, 1, 256, 256), generator=torch.Generator().manual_seed(2)).to(
+        cuda_device, torch.bfloat16)
+    xg = x.detach().requires_grad_(True)
+    out = dispatch(xg, st)
+    (grad,) = torch.autograd.grad(out, xg, g)
+    torch.cuda.synchronize()
+    _assert_matches_plain(out, x, st, plain, torch.bfloat16)
+    _assert_matches_plain(grad, g, -st, plain, torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_gather_warp_on_card_matches_cpu(cuda_device, mode):
+    """The two-pass gather warp (rotate then translate, ops/warp.py) of an
+    f32 and a bf16 stack, on the card against the CPU, the transforms made
+    on the CPU: the same IEEE operations in the same order on both (eager
+    kernels contract nothing), so the forward agrees to 1e-6; the gradient's
+    scatter-add uses atomics on the card, whose sums land in another order:
+    1e-5 of its scale, or one bf16 ulp of it for a bf16 image."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.uniform(0, 1, (4, 3, 96, 80)).astype(np.float32))
+    g = torch.from_numpy(rng.uniform(-1, 1, (4, 3, 96, 80)).astype(np.float32))
+    rot = rotation_transform(torch.from_numpy(rng.uniform(-0.3, 0.3, 4)), 96, 80)
+    move = translation_transform(torch.from_numpy(rng.uniform(-10, 10, (4, 2))))
+    for dtype in (torch.float32, torch.bfloat16):
+        results = []
+        for dev in (torch.device("cpu"), cuda_device):
+            xi = x.to(dev, dtype).requires_grad_(True)
+            out = warp_planes(warp_planes(xi, rot.to(dev), mode), move.to(dev), mode)
+            (grad,) = torch.autograd.grad(out, xi, g.to(dev, out.dtype))
+            assert grad.dtype == dtype
+            results.append((out.detach().cpu().float(), grad.cpu().float()))
+        (cpu_out, cpu_grad), (gpu_out, gpu_grad) = results
+        assert float((cpu_out - gpu_out).abs().max()) <= 1e-6
+        scale = float(cpu_grad.abs().max())
+        tol = 1e-5 * scale if dtype == torch.float32 else float(_bf16_ulp(
+            torch.tensor(scale)))
+        assert float((cpu_grad - gpu_grad).abs().max()) <= tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name, kw, tol", [
+    ("staged shear f32", dict(operator_impl="staged"), 5e-5),
+    ("staged shear bf16", dict(operator_impl="staged", solve_dtype="bfloat16"),
+     3 * 2.0 ** -8),
+    ("gather", dict(warp_impl="gather"), 5e-5),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_staged_and_gather_operators_on_card_match_cpu(cuda_device, name, kw, tol):
+    """forward_operator of two target planes and its adjoint through
+    autograd, on the card against the CPU (chip_smoke's [operator-small]
+    bounds): shear f32, the kernel within 1e-5 of the plain version per pass
+    and the resize's f32 sums; shear bf16, one bf16 ulp per pass; gather, cos
+    and sin an f32 ulp apart. The adjoint (cotangent in [0, 1]) within that
+    times the 4 copies."""
+    rng = np.random.default_rng(11)
+    planes = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64)).astype(np.float32))
+    cot = torch.from_numpy(rng.uniform(0, 1, (4, 16, 16, 2)).astype(np.float32))
+    angles = torch.from_numpy(rng.uniform(-0.3, 0.3, 4).astype(np.float32))
+    shifts = torch.from_numpy(rng.uniform(-8, 8, (4, 2)).astype(np.float32))
+    cfg = SRConfig(num_aug=4, feature_size=(16, 16), output_size=(64, 64), **kw)
+    results = []
+    for dev in (torch.device("cpu"), cuda_device):
+        x = planes.to(dev).requires_grad_(True)
+        out = forward_operator(x, angles.to(dev), shifts.to(dev), (16, 16), cfg)
+        (adj,) = torch.autograd.grad(out, x, cot.to(dev))
+        results.append((out.detach().cpu(), adj.cpu()))
+    (cpu_out, cpu_adj), (gpu_out, gpu_adj) = results
+    assert float((cpu_out - gpu_out).abs().max()) <= tol, name
+    assert float((cpu_adj - gpu_adj).abs().max()) <= 4 * tol, name
 
 
 @pytest.mark.requires_cuda

@@ -22,7 +22,6 @@ from deeplabv3plus_augmented_superresolution_tpu.data import io as j_io
 from deeplabv3plus_augmented_superresolution_tpu.data import paths as j_paths
 from deeplabv3plus_augmented_superresolution_tpu.models import (
     DeepLabConfig as JDeepLabConfig,
-    init_params as j_init_params,
 )
 from deeplabv3plus_augmented_superresolution_tpu.pipeline import (
     augmented_feature_maps as j_augmented_feature_maps,
@@ -50,9 +49,9 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     precompute_gram_stencil,
 )
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr.orchestrate import compute_sr
-from test_torch_shear import EXACT_COMPILE, run_fast
+from test_torch_shear import EXACT_COMPILE, jax_init_params, run_fast
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 MOBILENET = dict(input_shape=(64, 64, 3), backbone="mobilenet", final_upsample=False)
 
@@ -200,7 +199,7 @@ def mobilenet():
     image, 4 copies' draws and the JAX feature maps in slice_max mode: the
     class logits and the max of the other logits."""
     jcfg = JDeepLabConfig(**MOBILENET)
-    params = j_init_params(jcfg, seed=0)
+    params = jax_init_params(jcfg, seed=0)
     rng = np.random.default_rng(3)
     image = rng.uniform(0, 1, (64, 64, 3)).astype(np.float32)
     angles = rng.uniform(-0.15, 0.15, 4).astype(np.float32)

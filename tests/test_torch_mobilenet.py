@@ -16,7 +16,6 @@ import jax.numpy as jnp
 from deeplabv3plus_augmented_superresolution_tpu.models import (
     DeepLabConfig as JDeepLabConfig,
     forward as j_forward,
-    init_params as j_init_params,
     load_keras_h5_weights as j_load_h5,
 )
 from deeplabv3plus_augmented_superresolution_tpu.models.layers import (
@@ -53,23 +52,31 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     precompute_gram_stencil,
 )
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr.solver import _normal_op
-from test_torch_shear import run_fast
+from test_torch_shear import jax_init_params, run_fast
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 SMALL = dict(input_shape=(64, 64, 3), backbone="mobilenet", final_upsample=False)
-# The JAX references run jitted: one compile instead of one per op.
-j_forward_jit = jax.jit(j_forward, static_argnames="cfg")
 
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return j_init_params(JDeepLabConfig(**SMALL), seed=0)
+    return jax_init_params(JDeepLabConfig(**SMALL), seed=0)
 
 
 @pytest.fixture(scope="module")
 def image():
     return np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def forward_refs(jax_params, image):
+    """The reference's logits in f32 and in bf16, one jitted program."""
+    cfgs = {"f32": JDeepLabConfig(**SMALL),
+            "bf16": JDeepLabConfig(**SMALL, compute_dtype="bfloat16")}
+    refs = run_fast(jax.jit(lambda p, x: {k: j_forward(p, x, c) for k, c in cfgs.items()}),
+                    jax_params, jnp.asarray(image))
+    return {k: np.asarray(v).astype(np.float32) for k, v in refs.items()}
 
 
 def test_mobilenet_init_params_equal_jax(jax_params):
@@ -85,13 +92,12 @@ def test_mobilenet_init_params_equal_jax(jax_params):
                                           err_msg=f"{layer}/{name}")
 
 
-def test_mobilenet_f32_logits_match_jax(jax_params, image):
+def test_mobilenet_f32_logits_match_jax(jax_params, image, forward_refs):
     """OS forced to 8, no decoder: (2, 8, 8, 21) logits at 64 px, f32 on both
     sides, 1e-4 of the logit scale (as the Xception test)."""
     cfg = DeepLabConfig(**SMALL, os=16)
     assert cfg.os == 8
-    ref = np.asarray(run_fast(j_forward_jit, jax_params, jnp.asarray(image),
-                              cfg=JDeepLabConfig(**SMALL)))
+    ref = forward_refs["f32"]
     model = DeepLab(cfg, device="cpu").load_params(params_from_jax(jax_params)).eval()
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()
@@ -99,13 +105,12 @@ def test_mobilenet_f32_logits_match_jax(jax_params, image):
     np.testing.assert_allclose(ours, ref, atol=1e-4 * np.abs(ref).max())
 
 
-def test_mobilenet_bf16_masks_agree_with_jax(jax_params, image):
+def test_mobilenet_bf16_masks_agree_with_jax(jax_params, image, forward_refs):
     """bf16 rounds at other places in the two frameworks: argmax labels agree
     on >= 90% of pixels, logits within 5% of their scale (as the Xception
     test)."""
     cfg = dict(SMALL, compute_dtype="bfloat16")
-    ref = np.asarray(run_fast(j_forward_jit, jax_params, jnp.asarray(image),
-                              cfg=JDeepLabConfig(**cfg)))
+    ref = forward_refs["bf16"]
     model = build_model(DeepLabConfig(**cfg), params=jax_params, device="cpu")
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()

@@ -27,17 +27,16 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
     params_from_jax,
     save_params_npz,
 )
-from test_torch_shear import run_fast
+from test_torch_shear import jax_init_params, run_fast
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 SMALL = dict(input_shape=(64, 64, 3), final_upsample=False)
-j_forward_jit = jax.jit(j_forward, static_argnames="cfg")
 
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return j_init_params(JDeepLabConfig(**SMALL), seed=0)
+    return jax_init_params(JDeepLabConfig(**SMALL), seed=0)
 
 
 @pytest.fixture(scope="module")
@@ -53,12 +52,12 @@ def _variant_cfg(variant):
 
 
 @pytest.fixture(scope="module")
-def os16_refs(jax_params, image):
-    """The reference's OS16 logits of the full model and of both decoder
-    variants, in one jitted program: each variant takes jax_params, less
-    the layers it lacks, with its own init's layers where their shapes
-    differ (the decoder head), so the three share the backbone's inputs and
-    XLA compiles it once. Also each variant's own init (seed 1) and its
+def forward_refs(jax_params, image):
+    """The reference's logits of the full model at OS16, OS8 and in bf16 and
+    of both decoder variants, in one jitted program: each variant takes
+    jax_params, less the layers it lacks, with its own init's layers where
+    their shapes differ (the decoder head), so all share the backbone's
+    inputs and one compile. Also each variant's own init (seed 1) and its
     params."""
     inits, heads = {}, {}
     for variant in VARIANTS:
@@ -68,7 +67,8 @@ def os16_refs(jax_params, image):
             if layer not in jax_params or any(
                 np.shape(v) != np.shape(jax_params[layer].get(n))
                 for n, v in weights.items())}
-    cfgs = {"full": JDeepLabConfig(**SMALL),
+    cfgs = {"full": JDeepLabConfig(**SMALL), "os8": JDeepLabConfig(**SMALL, os=8),
+            "bf16": JDeepLabConfig(**SMALL, compute_dtype="bfloat16"),
             **{v: JDeepLabConfig(**_variant_cfg(v)) for v in VARIANTS}}
     logits = run_fast(jax.jit(lambda p, h, x: {k: j_forward({**p, **h.get(k, {})}, x, c)
                                                for k, c in cfgs.items()}),
@@ -104,11 +104,10 @@ def test_params_from_jax_layouts(jax_params):
 
 
 @pytest.mark.parametrize("os_", [16, 8])
-def test_xception_f32_logits_match_jax(jax_params, image, os16_refs, os_):
+def test_xception_f32_logits_match_jax(jax_params, image, forward_refs, os_):
     """Shared params, f32 on both sides: ~75 convolutions deep, the two
     frameworks' conv sums differ in order, 1e-4 of the logit scale."""
-    ref = os16_refs[0]["full"] if os_ == 16 else np.asarray(run_fast(
-        j_forward_jit, jax_params, jnp.asarray(image), cfg=JDeepLabConfig(**SMALL, os=os_)))
+    ref = forward_refs[0]["full" if os_ == 16 else "os8"]
     model = DeepLab(DeepLabConfig(**SMALL, os=os_), device="cpu").load_params(
         params_from_jax(jax_params)).eval()
     with torch.no_grad():
@@ -117,14 +116,13 @@ def test_xception_f32_logits_match_jax(jax_params, image, os16_refs, os_):
     np.testing.assert_allclose(ours, ref, atol=1e-4 * np.abs(ref).max())
 
 
-def test_xception_bf16_masks_agree_with_jax(jax_params, image):
+def test_xception_bf16_masks_agree_with_jax(jax_params, image, forward_refs):
     """bf16 rounds at other places in the two frameworks (the bias add of the
     head, conv accumulation order), so bf16 is compared at mask level: the
     argmax labels agree on >= 90% of pixels of a random-init model (whose
     class margins are small), and the logits stay within 5% of their scale."""
     cfg = dict(SMALL, compute_dtype="bfloat16")
-    ref = np.asarray(run_fast(j_forward_jit, jax_params, jnp.asarray(image),
-                              cfg=JDeepLabConfig(**cfg)))
+    ref = forward_refs[0]["bf16"].astype(np.float32)
     model = build_model(DeepLabConfig(**cfg), params=jax_params, device="cpu")
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()
@@ -186,14 +184,14 @@ def test_h5_loader_matches_jax(jax_params, tmp_path):
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_unported_variants_raise(variant, image, os16_refs):
+def test_unported_variants_raise(variant, image, forward_refs):
     """The decoder variants, which raised before they were ported, build and
     run as the reference does: init_params draws the reference's arrays for
     the variant (its unused ASPP included), and the f32 logits (only_DCNN:
     the projected backbone output, no ASPP; only_ASPP: the ASPP output; both
     upsampled to first_upsample_size, then the head) match the reference's
     forward on the same params and input, 1e-4 of the logit scale."""
-    refs, inits, variant_params = os16_refs
+    refs, inits, variant_params = forward_refs
     ours_params = init_params(DeepLabConfig(**_variant_cfg(variant)), seed=1)
     assert set(ours_params) == set(inits[variant])
     for layer, weights in inits[variant].items():

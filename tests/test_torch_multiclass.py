@@ -20,7 +20,6 @@ import jax.numpy as jnp
 from deeplabv3plus_augmented_superresolution_tpu.metrics import mean_iou as j_mean_iou
 from deeplabv3plus_augmented_superresolution_tpu.models import (
     DeepLabConfig as JDeepLabConfig,
-    init_params as j_init_params,
 )
 from deeplabv3plus_augmented_superresolution_tpu.ops.opm import (
     extract_masks_multiclass as j_extract_multiclass,
@@ -66,9 +65,9 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     multiclass_max_mean_superresolution,
     precompute_gram_stencil,
 )
-from test_torch_shear import EXACT_COMPILE, run_fast
+from test_torch_shear import EXACT_COMPILE, jax_init_params, run_fast
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 SERVING_OPT = dict(learning_rate=1e-3, amsgrad=True, lr_scheduler=True,
@@ -257,7 +256,7 @@ def step_case():
     take the port's stencil (held against the reference's at this
     decimation factor in test_torch_mobilenet), which spares the reference
     an inline extraction in its compile."""
-    params = j_init_params(JDeepLabConfig(**MODEL), seed=0)
+    params = jax_init_params(JDeepLabConfig(**MODEL), seed=0)
     model = build_model(DeepLabConfig(**MODEL), params=params, device="cpu")
     image = np.random.default_rng(3).uniform(0, 1, (64, 64, 3)).astype(np.float32)
     second = np.random.default_rng(23).uniform(0, 1, (64, 64, 3)).astype(np.float32)

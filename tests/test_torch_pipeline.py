@@ -26,7 +26,6 @@ from deeplabv3plus_augmented_superresolution_tpu.metrics import (
 )
 from deeplabv3plus_augmented_superresolution_tpu.models import (
     DeepLabConfig as JDeepLabConfig,
-    init_params as j_init_params,
 )
 from deeplabv3plus_augmented_superresolution_tpu.pipeline import (
     asr_step as j_asr_step,
@@ -52,9 +51,9 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     OptimizerConfig,
     SRConfig,
 )
-from test_torch_shear import run_fast
+from test_torch_shear import jax_init_params, run_fast
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,7 +66,7 @@ SMALL_MODEL = dict(input_shape=(64, 64, 3), final_upsample=False)
 
 @pytest.fixture(scope="module")
 def params():
-    return j_init_params(JDeepLabConfig(**SMALL_MODEL), seed=0)
+    return jax_init_params(JDeepLabConfig(**SMALL_MODEL), seed=0)
 
 
 @pytest.fixture(scope="module")
@@ -304,11 +303,34 @@ def test_cli_flags_and_defaults_match_jax_cli():
 @pytest.mark.parametrize("flags", [
     ["--warp_impl", "gather"], ["--operator_impl", "staged"],
 ], ids=lambda f: " ".join(f))
-def test_main_rejects_flags_outside_the_slice(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        run_asr.main(["--images", SMOKE_IMG, *flags])
-    assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_main_rejects_flags_outside_the_slice(flags, tmp_path, monkeypatch):
+    """The last flags that exited with "not ported yet", --warp_impl gather
+    and --operator_impl staged, now run main end to end (64 px, f32, 2
+    copies, 3 steps, aug + max + mean): every PNG equals the mask of
+    asr_step, the library call that tests/test_torch_warp.py holds against
+    JAX, on the same decoded image with the seed's set, bit for bit."""
+    monkeypatch.setattr(run_asr, "IMG_SIZE", (64, 64))
+    monkeypatch.setattr(run_asr, "build_deeplab", _small_deeplab)
+    argv = ["--images", SMOKE_IMG, "--num_aug", "2", "--num_iter", "3",
+            "--shift_max", "8", "--cache_dir", "", "--writer_threads", "2",
+            "--prefetch", "0", "--device", "cpu", "--sr_types", "aug,max,mean",
+            "--output_dir", str(tmp_path), *flags]
+    assert run_asr.main(argv)["n_images"] == 1
+    args = run_asr.parse_args(argv)
+    model = _small_deeplab(device="cpu")
+    cfg = run_asr.make_sr_config(args, num_aug=2, feature_size=run_asr.feature_size_of(
+        model.cfg), output_size=(64, 64), angle_max=args.angle_max)
+    assert (cfg.warp_impl, cfg.operator_impl) == (
+        ("gather", "fused") if "--warp_impl" in flags else ("shear", "staged"))
+    angles, shifts = sample_augmentations(torch.Generator().manual_seed(run_asr.SEED), 2,
+                                          args.angle_max, 8.0, device="cpu")
+    want = asr_step(model, torch.from_numpy(load_image(SMOKE_IMG, image_size=(64, 64))),
+                    angles, shifts, cfg, 8, th_factor=args.th_factor,
+                    sr_types=("aug", "max", "mean"))
+    for key in ("aug", "max", "mean", "standard"):
+        mask = load_image(str(tmp_path / f"smoke_input_{key}.png"), is_png=True,
+                          normalize=False)
+        np.testing.assert_array_equal(mask, want[key].numpy())
 
 
 def _jax_fast_preset(args):
@@ -350,6 +372,11 @@ def test_parse_accepts_the_flags_this_slice_ports(flags):
 def _small_deeplab(backbone="xception", weights_path=None, *, device):
     """The CLI's model at 64 px and in f32, so that main runs on the CPU;
     built once per backbone (main only reads it)."""
+    return _built(backbone, str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _built(backbone, device):
     return build_model(DeepLabConfig(**SMALL_MODEL, backbone=backbone), seed=0,
                        device=device)
 

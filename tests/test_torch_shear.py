@@ -7,6 +7,8 @@ JAX runs on the CPU: its shear takes the XLA two-level-blend path
 (``_shear_rows``), and the Pallas kernel runs in interpret mode.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from deeplabv3plus_augmented_superresolution_tpu.models import init_params as j_init_params
 from deeplabv3plus_augmented_superresolution_tpu.ops.resize import resize as j_resize
 from deeplabv3plus_augmented_superresolution_tpu.ops.pallas_shear import (
     candidates_for,
@@ -34,7 +37,10 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
     shear_taps,
 )
 
-torch.set_num_threads(2)
+# One intra-op thread in every port test file: at these sizes a second one
+# gains no wall time, and its spin-waits cost ~24 s of CPU over the port's
+# files, which the suite's workers share with the JAX package's tests.
+torch.set_num_threads(1)
 
 # The JAX references compile without most of XLA's optimisations (its
 # backend at level 0, as jax_disable_most_optimizations sets it): the 64-px
@@ -47,6 +53,14 @@ torch.set_num_threads(2)
 # there, and the min-max normalization of the max stack amplifies them.
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 EXACT_COMPILE = dict(FAST_COMPILE, xla_backend_optimization_level=1)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_init_params(cfg, seed: int = 0):
+    """The JAX package's init_params(cfg, seed), once per process: the port's
+    files that read the same 64-px model share it (an Xception init takes
+    ~1 s). Its arrays are immutable; callers do not change the dict."""
+    return j_init_params(cfg, seed=seed)
 
 
 def run_fast(jitted, *args, options=FAST_COMPILE, **static):
@@ -192,71 +206,96 @@ def _warp_case(seed=1):
     return angles, shifts
 
 
-@pytest.mark.parametrize("channels", [1, 3])
-def test_paeth_forward_and_inverse_match_jax(channels):
-    """Three shear passes in f32. Row shifts reach ~40 px, so a 1-ulp trig
-    difference moves a tap weight by ~4e-6: 2e-5 on unit-scale images.
-    Angles stay inside shear_taps(0.35, 64), the reference's static span."""
-    assert shear_taps(0.35, 64) >= int(np.ceil(0.35 * 64))
-    imgs = _smooth_batch(3, 64, channels, seed=channels)
-    angles, shifts = _warp_case()
-    ours = paeth_rotate_translate(torch.from_numpy(imgs), torch.from_numpy(angles),
-                                  torch.from_numpy(shifts), 0.35)
-    ref = np.asarray(run_fast(j_paeth, jnp.asarray(imgs), jnp.asarray(angles),
-                              jnp.asarray(shifts), angle_max=0.35))
-    assert ours.shape == imgs.shape
-    np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5)
-
-    inv = paeth_inverse_rotate_translate(ours, torch.from_numpy(angles),
-                                         torch.from_numpy(shifts), 0.35)
-    ref_inv = np.asarray(run_fast(j_inverse, jnp.asarray(ref), jnp.asarray(angles),
-                                  jnp.asarray(shifts), angle_max=0.35))
-    np.testing.assert_allclose(inv.numpy(), ref_inv, atol=2e-5)
-
-
-def test_paeth_nearest_matches_jax_on_labels():
-    """interpolation='nearest' rounds each pass's shift: a pure pixel selection,
-    so the label images agree exactly and no label is invented."""
+def _labels_case():
     gt = np.zeros((2, 96, 96, 1), np.float32)
     gt[:, 30:70, 25:75] = 8.0
     gt[:, 28:30, 23:77] = 255.0
     angles = np.array([0.27, -0.32], np.float32)
     shifts = np.array([[7.3, -9.6], [-11.0, 4.5]], np.float32)
+    return gt, angles, shifts
+
+
+def _bf16_case():
+    img = np.random.default_rng(9).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    return torch.from_numpy(img).to(torch.bfloat16), *_warp_case(seed=2)
+
+
+@pytest.fixture(scope="module")
+def paeth_refs():
+    """The reference's Paeth warps (angle_max 0.35), one jitted program: the
+    forward of smooth f32 batches of 1 and 3 channels and the inverse of that
+    forward; the forward and the inverse of the label images with the nearest
+    mode; the f32 warp of the bf16 copies' image."""
+    angles, shifts = _warp_case()
+    imgs = {f"c{c}": _smooth_batch(3, 64, c, seed=c) for c in (1, 3)}
+    gt, l_angles, l_shifts = _labels_case()
+    img16, b_angles, b_shifts = _bf16_case()
+
+    def refs(imgs, a, s, gt, la, ls, img, ba, bs):
+        out = {}
+        for c, x in imgs.items():
+            fwd = j_paeth(x, a, s, 0.35)
+            out[c] = (fwd, j_inverse(fwd, a, s, 0.35))
+        out["nearest"] = (j_paeth(gt, la, ls, 0.35, "nearest"),
+                          j_inverse(gt, la, ls, 0.35, "nearest"))
+        out["bf16"] = j_paeth(jnp.broadcast_to(img, (3, 64, 64, 3)), ba, bs, 0.35)
+        return out
+
+    ref = run_fast(jax.jit(refs), {c: jnp.asarray(x) for c, x in imgs.items()},
+                   *(jnp.asarray(v) for v in (angles, shifts, gt, l_angles, l_shifts,
+                                              img16.float().numpy(), b_angles, b_shifts)))
+    return imgs, jax.tree.map(np.asarray, ref)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_paeth_forward_and_inverse_match_jax(paeth_refs, channels):
+    """Three shear passes in f32. Row shifts reach ~40 px, so a 1-ulp trig
+    difference moves a tap weight by ~4e-6: 2e-5 on unit-scale images.
+    Angles stay inside shear_taps(0.35, 64), the reference's static span."""
+    assert shear_taps(0.35, 64) >= int(np.ceil(0.35 * 64))
+    imgs, refs = paeth_refs
+    imgs = imgs[f"c{channels}"]
+    angles, shifts = _warp_case()
+    ours = paeth_rotate_translate(torch.from_numpy(imgs), torch.from_numpy(angles),
+                                  torch.from_numpy(shifts), 0.35)
+    ref, ref_inv = refs[f"c{channels}"]
+    assert ours.shape == imgs.shape
+    np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5)
+
+    inv = paeth_inverse_rotate_translate(ours, torch.from_numpy(angles),
+                                         torch.from_numpy(shifts), 0.35)
+    np.testing.assert_allclose(inv.numpy(), ref_inv, atol=2e-5)
+
+
+def test_paeth_nearest_matches_jax_on_labels(paeth_refs):
+    """interpolation='nearest' rounds each pass's shift: a pure pixel selection,
+    so the label images agree exactly and no label is invented."""
+    gt, angles, shifts = _labels_case()
+    ref, ref_inv = paeth_refs[1]["nearest"]
     ours = paeth_rotate_translate(torch.from_numpy(gt), torch.from_numpy(angles),
                                   torch.from_numpy(shifts), 0.35,
                                   interpolation="nearest").numpy()
-    ref = np.asarray(run_fast(j_paeth, jnp.asarray(gt), jnp.asarray(angles),
-                              jnp.asarray(shifts), angle_max=0.35,
-                              interpolation="nearest"))
     np.testing.assert_array_equal(ours, ref)
     assert set(np.unique(ours)) <= {0.0, 8.0, 255.0}
 
     inv = paeth_inverse_rotate_translate(torch.from_numpy(gt), torch.from_numpy(angles),
                                          torch.from_numpy(shifts), 0.35,
                                          interpolation="nearest").numpy()
-    ref_inv = np.asarray(run_fast(j_inverse, jnp.asarray(gt), jnp.asarray(angles),
-                                  jnp.asarray(shifts), angle_max=0.35,
-                                  interpolation="nearest"))
     np.testing.assert_array_equal(inv, ref_inv)
 
 
-def test_paeth_bf16_copies_within_three_roundings():
+def test_paeth_bf16_copies_within_three_roundings(paeth_refs):
     """The serving path warps bf16 copies. The port rounds to bf16 once per
     pass (blends in f32); the reference XLA path blends in bf16. Against the
     f32 reference warp: three roundings of half an ulp plus the bf16 input,
     under 3 bf16 ulps of 1.0 for images in [0, 1]."""
-    rng = np.random.default_rng(9)
-    img = rng.uniform(0, 1, (64, 64, 3)).astype(np.float32)
-    img16 = torch.from_numpy(img).to(torch.bfloat16)
-    angles, shifts = _warp_case(seed=2)
+    img16, angles, shifts = _bf16_case()
     batched = img16[None].expand(3, 64, 64, 3)
     ours = paeth_rotate_translate(batched, torch.from_numpy(angles),
                                   torch.from_numpy(shifts), 0.35)
     assert ours.dtype == torch.bfloat16
-    ref = np.asarray(j_paeth(jnp.broadcast_to(jnp.asarray(img16.float().numpy()),
-                                              (3, 64, 64, 3)),
-                             jnp.asarray(angles), jnp.asarray(shifts), 0.35))
-    np.testing.assert_allclose(ours.float().numpy(), ref, atol=3 * BF16_ULP_AT_1)
+    np.testing.assert_allclose(ours.float().numpy(), paeth_refs[1]["bf16"],
+                               atol=3 * BF16_ULP_AT_1)
 
 
 @pytest.mark.parametrize("shape,size", [((2, 128, 128, 1), (32, 32)),

@@ -33,7 +33,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
 )
 from test_torch_shear import pallas_interpret
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 SIZE = 64
 CENTER = (SIZE - 1) / 2.0

@@ -46,7 +46,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
 )
 from test_torch_shear import run_fast
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 SERVING = dict(learning_rate=1e-3, amsgrad=True, lr_scheduler=True,

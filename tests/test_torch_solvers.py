@@ -45,7 +45,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
 from deeplabv3plus_augmented_superresolution_tpu_torch.sr.solver import _gram_system
 from test_torch_shear import FAST_COMPILE, run_fast
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 N = 6

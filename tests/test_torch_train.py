@@ -98,7 +98,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.utils.checkpoint import (
     load_train_state, restore_opt_state, save_train_state)
 from test_torch_shear import FAST_COMPILE
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 SIZE = 32
 # The train steps' sgd step size (see the module docstring); LR is the
