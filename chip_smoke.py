@@ -3,6 +3,7 @@ evaluation paths.
 
     python3 chip_smoke.py [--seed 0] [--images 6] [--stage-trace]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
+    python3 chip_smoke.py --sharded-only
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and the repository checkout. In
 order, each phase raising on failure:
@@ -66,6 +67,16 @@ order, each phase raising on failure:
      check_robustness' core on ROBUST_IMAGES scenes in one batch over 27
      combinations, its nearest-warped labels held bit for bit against the
      plain path's;
+     then ``[sharded]`` (parallel/): the ranks are processes that share card
+     0 through gloo groups (NCCL takes one rank a card; the machine may
+     show one): ``serve-sharded-aug3`` (``serve`` with --batch 2 on a (1, 3)
+     mesh, 100 copies padded to 102, the padded stencil checked first) and
+     ``serve-sharded-data2-aug2`` (a (2, 2) mesh), each rank's launches per
+     step asserted equal to one card's, the masks' IoU against the
+     one-process path, its peak; ``train-sharded`` (2 ranks, cli.train's
+     ``train`` at 128 px in f32) against the one-process run; a world-1 NCCL
+     group's ``make_asr_batch_fn`` step bit for bit against the one-process
+     step; with two cards, ``serve-sharded-aug2-nccl``;
   7. each kernel vs its plain version at the serving paths' shapes and
      layouts (contiguous, stride-0 and class-major input: the copies warp
      of one image or of a batch of 4, the fused operator at features 128
@@ -214,6 +225,25 @@ SLICE_MIN_IOU = 0.5
 # an f32 ulp on the card, which moves sample points by ~1e-5 px.
 OPERATOR_SMALL_ATOL = {"staged shear f32": 5e-5, "staged shear bf16": 3 * 2.0 ** -8,
                        "gather": 5e-5}
+# The [sharded] phase (parallel/): its global batch and images (two
+# batches), the serving runs (label, ranks, (data, aug) mesh), the masks'
+# IoU bound against the one-process path (each rank's cuDNN forward runs a
+# block of 34 or 50 copies and may pick other algorithms than for 100, so the
+# bf16 logits, hence the masks, need not be equal bit for bit), and the
+# training run's ranks, steps and compute dtype: the `train` configuration
+# (Xception, 128 px, batch 8) in float32, TF32 off, as the card-vs-CPU step
+# check (`[train-small]`) runs; in bfloat16 the two runs' losses differ by
+# 2.2e-4 relative after 3 steps (a rank's 4-sample convolutions and the
+# synchronised statistics round otherwise than the 8-sample run's), past
+# that check's 1e-5.
+SHARDED_BATCH = 2
+SHARDED_IMAGES = 4
+SHARDED_SERVE_RUNS = (("serve-sharded-aug3", 3, (1, 3)),
+                      ("serve-sharded-data2-aug2", 4, (2, 2)))
+SHARDED_MIN_IOU = 0.98
+SHARDED_TRAIN_RANKS = 2
+SHARDED_TRAIN_STEPS = 3
+SHARDED_TRAIN_DTYPE = "float32"
 # Length of the spin kernel ahead of each timing window (about 2 ms at the
 # card's clock): long enough for the host to enqueue the window behind it.
 SPIN_CYCLES = 4_000_000
@@ -1848,6 +1878,394 @@ def phase_eval_small(device):
            gpu["robustness"], EVAL_IOU_ATOL)
 
 
+SHARDED_DIR = "build/chip_smoke_sharded"
+
+
+def _sharded_stencil_path(cfg) -> str:
+    import os
+
+    return os.path.join(SHARDED_DIR, f"stencil_{cfg.num_aug}_{cfg.n_valid}.npy")
+
+
+def _sharded_serve(rank, run, mesh, model, device, images, sr_cfg, class_id):
+    """One rank of a sharded serving run: ``serve`` with the mesh on this
+    rank's share of the images (launches counted from 0 around it, its peak
+    memory), then ``make_asr_batch_fn`` on the first global batch, whose
+    masks the writing ranks keep for the IoU against the one-process path."""
+    import os
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+        SEED, rank_share, serve)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.parallel import (
+        make_asr_batch_fn, padded_sr_cfg, shard_batch)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import (
+        sample_augmentations)
+
+    padded = padded_sr_cfg(sr_cfg, mesh)
+    coeffs = (torch.as_tensor(np.load(_sharded_stencil_path(padded)), device=device)
+              if mesh.rank == 0 else
+              torch.empty((7, 9) + tuple(sr_cfg.output_size), device=device))
+    share = [(name if real else None, image)
+             for real, (name, image) in rank_share(images, SHARDED_BATCH, mesh)]
+    counters = launch_counters()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    for counter in counters.values():
+        counter.launches = 0
+    summary = serve(share, model, sr_cfg, device=device, class_id=class_id,
+                    sr_types=SLICE_SR_TYPES, batch=SHARDED_BATCH, gram_coeffs=coeffs,
+                    writer_threads=2, mesh=mesh)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    angles, shifts = sample_augmentations(torch.Generator().manual_seed(SEED),
+                                          sr_cfg.num_aug, 0.15, 80.0, device=device)
+    batch_fn = make_asr_batch_fn(mesh, model, sr_cfg, class_id, th_factor=0.2,
+                                 sr_types=SLICE_SR_TYPES, gram_coeffs=coeffs,
+                                 return_targets=True)
+    first = torch.stack([torch.as_tensor(image, device=device)
+                         for _, image in images[:SHARDED_BATCH]])
+    own, own_angles, own_shifts = shard_batch(mesh, first, angles, shifts)
+    out = batch_fn(own, own_angles, own_shifts)
+    finite = all(bool(torch.isfinite(out[f"{t}_target"]).all()) for t in SLICE_SR_TYPES)
+    start, count = mesh.block("data", SHARDED_BATCH)
+    if mesh.aug_index == 0:
+        np.savez(os.path.join(SHARDED_DIR, f"{run['label']}.masks{mesh.data_index}.npz"),
+                 **{t: out[t].cpu().numpy() for t in SLICE_SR_TYPES})
+    return {"rank": rank, "data_index": mesh.data_index, "aug_index": mesh.aug_index,
+            "images": list(range(start, start + count)), "launches": launches,
+            "steps": summary["steps"], "peak_bytes": peak, "targets_finite": finite,
+            "copies": own_angles.shape[0], "num_aug": padded.num_aug,
+            "num_valid": padded.n_valid, "n_images": summary["n_images"],
+            "first_image_s": summary["first_image_s"],
+            "steady_s_per_image": summary["steady_s_per_image"],
+            "loop_stages_ms": {k: round(v["ms_per_call"], 3)
+                               for k, v in summary["loop_stages"].items()}}
+
+
+def sharded_train_args(ckpt_dir: str):
+    """cli.train's `train` configuration (Xception OS16, 128 px, batch 8) for
+    the sharded check: sgd at TRAIN_CHECK_LR for SHARDED_TRAIN_STEPS steps from
+    the conditioned start, a checkpoint at the end."""
+    import os
+
+    return train_args(128, SHARDED_TRAIN_STEPS, "--optimizer", "sgd", "--lr",
+                      str(TRAIN_CHECK_LR), "--resume", os.path.join(SHARDED_DIR, "start.npz"),
+                      "--compute_dtype", SHARDED_TRAIN_DTYPE, "--ckpt_dir", ckpt_dir,
+                      "--ckpt_every", str(SHARDED_TRAIN_STEPS), "--eval_images", "1")
+
+
+def _sharded_train(rank, mesh, device):
+    """One rank of the sharded training run: cli.train's ``train`` with the
+    mesh, launches counted from 0 around it."""
+    import os
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import train
+
+    counters = launch_counters()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    for counter in counters.values():
+        counter.launches = 0
+    summary, timing = train(sharded_train_args(os.path.join(SHARDED_DIR, "ckpt-sharded")),
+                            mesh)
+    return {"rank": rank, "losses": summary["losses"], "devices": summary["devices"],
+            "launches": {name: counter.launches for name, counter in counters.items()},
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "first_step_s": timing["first_step_s"]}
+
+
+def _sharded_worker(rank: int, spec: dict) -> None:
+    """A process of the [sharded] phase: it takes part, as rank ``rank``, in
+    each of spec's runs that has more ranks than that, each in a process
+    group of its own (gloo ranks on card 0, or NCCL ranks a card each); a
+    run's results go to SHARDED_DIR as JSON. An exception ends the process,
+    and torch.multiprocessing.spawn then ends the others and raises."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+        build_deeplab, make_sr_config)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images = make_images(spec["seed"], SHARDED_IMAGES)
+    sr_cfg = make_sr_config(None, num_aug=100, angle_max=0.15)
+    models = {}
+    for run in spec["runs"]:
+        if rank >= run["ranks"]:
+            continue
+        device = torch.device("cuda", rank if run["backend"] == "nccl" else 0)
+        torch.cuda.set_device(device)
+        dist.init_process_group(run["backend"], init_method=f"tcp://localhost:{run['port']}",
+                                world_size=run["ranks"], rank=rank,
+                                timeout=datetime.timedelta(seconds=600))
+        mesh = make_mesh(tuple(run["mesh"]))
+        if run["kind"] == "serve":
+            if device not in models:
+                models[device] = build_deeplab("xception", device=device)
+            result = _sharded_serve(rank, run, mesh, models[device], device, images,
+                                    sr_cfg, spec["class_id"])
+        else:
+            result = _sharded_train(rank, mesh, device)
+        dist.destroy_process_group()
+        with open(os.path.join(SHARDED_DIR, f"{run['label']}.rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+
+
+def _check_train_state(label, want_path, got_path):
+    """A sharded run's final train state against the one-process run's (the
+    form of `[train-small]`'s check, over SHARDED_TRAIN_STEPS steps): sgd's
+    momentum trace per leaf to 1% of the leaf's largest value + 1e-4 of the
+    whole trace's; the moving statistics 1e-5 absolute + 1e-5 relative; every
+    other parameter to 1e-6 + lr x steps x its leaf's trace bound (the
+    parameters move by lr times the trace each step). Returns the worst
+    share of each bound."""
+    with np.load(want_path) as want, np.load(got_path) as got:
+        opt = sorted((k for k in want.files if k.startswith("__opt__.")),
+                     key=lambda k: int(k.split(".")[1]))
+        traces = [want[k] for k in opt if want[k].ndim and want[k].size > 1]
+        scale = max(float(np.abs(t).max()) for t in traces)
+        worst = {"trace": (0.0, ""), "moving": (0.0, ""), "params": (0.0, "")}
+        failed = []
+
+        def note(kind, share, key):
+            if share > worst[kind][0]:
+                worst[kind] = (share, key)
+            if not share <= 1.0:
+                failed.append(f"{key} {kind} {share:.3g} of its bound")
+
+        trace_bound = {}
+        for key in opt:
+            w, g = want[key], got[key]
+            bound = 1e-2 * float(np.abs(w).max()) + 1e-4 * scale
+            trace_bound[key] = bound
+            note("trace", float(np.abs(g - w).max()) / bound if w.size else 0.0, key)
+        params = sorted(k for k in want.files if not k.startswith("__"))
+        per_leaf = dict(zip(params, (trace_bound[k] for k in opt))) \
+            if len(opt) == len(params) else {}
+        for key in params:
+            w, g = want[key], got[key]
+            err = float(np.abs(g - w).max())
+            if "moving" in key:
+                note("moving", err / (1e-5 + 1e-5 * float(np.abs(w).max())), key)
+            else:
+                bound = 1e-6 + TRAIN_CHECK_LR * SHARDED_TRAIN_STEPS * per_leaf.get(key, scale)
+                note("params", err / bound, key)
+    log(f"[{label}] final state vs the one-process run: worst trace leaf "
+        f"{worst['trace'][1]} at {worst['trace'][0]:.3f} of its bound, moving "
+        f"statistics {worst['moving'][1]} at {worst['moving'][0]:.3f}, parameters "
+        f"{worst['params'][1]} at {worst['params'][0]:.3f}")
+    if failed:
+        raise AssertionError(f"[{label}] the sharded run disagrees: {failed[:5]}")
+    return {kind: round(share, 4) for kind, (share, _) in worst.items()}
+
+
+def phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, seed):
+    """``parallel/`` on the card, the ranks spawned as processes that share
+    card 0 through a gloo group (the harness's choice: NCCL refuses two ranks
+    on one device; the CLIs take NCCL, a rank per card), each running the
+    library functions the CLIs run:
+
+      * ``serve-sharded-aug3``: 3 ranks, ``serve`` with --batch 2 on a (1, 3)
+        mesh, the 100 copies padded to 102 (34 a rank, num_valid 100, the
+        padded stencil extracted here and checked first), one class, aug +
+        max + mean, 2 batches;
+      * ``serve-sharded-data2-aug2``: 4 ranks, a (2, 2) mesh, 50 copies a
+        rank, an image a data group, 2 batches;
+      * ``train-sharded``: 2 ranks, ``cli.train``'s ``train`` at 128 px,
+        global batch 8 (4 a rank), SHARDED_TRAIN_STEPS sgd steps from the
+        conditioned start, held against the one-process run on the same
+        draws (``_check_train_state``).
+
+    Each serving run's masks of its first batch against the one-process
+    --batch 2 path's (IoU >= SHARDED_MIN_IOU each), its targets finite, each
+    rank's launches per step equal to the one-card path's (asserted) and
+    its peak; seconds per batch are of ranks sharing one card, not a speed
+    figure. Then a world-1 NCCL group runs ``make_asr_batch_fn`` on a (1, 1)
+    mesh for one image, held bit for bit against the one-process step; with
+    two cards or more, ``serve-sharded-aug2-nccl`` (a rank per card) too."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import build_deeplab
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import train
+    from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
+        DeepLabConfig, init_params, save_params_npz)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import apply_gram
+    from deeplabv3plus_augmented_superresolution_tpu_torch.parallel import (
+        make_asr_batch_fn, make_mesh, padded_sr_cfg)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.parallel.mesh import (
+        Mesh, free_port)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.parallel.sharded import (
+        copy_block)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
+    from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
+        forward_operator, precompute_gram_stencil)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    os.makedirs(SHARDED_DIR)
+    images = images[:SHARDED_IMAGES]
+    runs = [{"label": label, "kind": "serve", "ranks": ranks, "mesh": shape,
+             "backend": "gloo"} for label, ranks, shape in SHARDED_SERVE_RUNS]
+    runs.append({"label": "train-sharded", "kind": "train", "ranks": SHARDED_TRAIN_RANKS,
+                 "mesh": (1, SHARDED_TRAIN_RANKS), "backend": "gloo"})
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs.append({"label": "serve-sharded-aug2-nccl", "kind": "serve", "ranks": 2,
+                     "mesh": (1, 2), "backend": "nccl"})
+    for run in runs:
+        run["port"] = free_port()
+
+    # The stencils for rank 0 to load: the run's (coeffs, checked in phase 3)
+    # and the padded one of the aug-3 mesh (102 copies, 100 real), checked
+    # here against the normal operator of the 100 real copies.
+    np.save(_sharded_stencil_path(sr_cfg), coeffs.cpu().numpy())
+    for run in runs:
+        if run["kind"] != "serve":
+            continue
+        padded = padded_sr_cfg(sr_cfg, Mesh({"data": run["mesh"][0], "aug": run["mesh"][1]}, 0))
+        path = _sharded_stencil_path(padded)
+        if os.path.exists(path):
+            continue
+        t0 = time.perf_counter()
+        padded_coeffs = precompute_gram_stencil(angles, shifts, padded)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        x = torch.rand((1, *sr_cfg.output_size, 1),
+                       generator=torch.Generator(device=device).manual_seed(1), device=device)
+        z = x.clone().requires_grad_(True)
+        out = forward_operator(z, angles, shifts, sr_cfg.feature_size, sr_cfg)
+        (direct,) = torch.autograd.grad(out, z, out.detach())
+        scale = float(direct.abs().max())
+        err = float((apply_gram(x, padded_coeffs) - direct).abs().max())
+        log(f"[sharded] stencil of {padded.num_aug} copies ({padded.n_valid} real) "
+            f"extracted in {seconds:.2f}s; |G x - A^T A x| over the real copies max "
+            f"{err:.3g} (scale {scale:.3g}, rel {err / scale:.3g}, bound {STENCIL_RTOL})")
+        if not err <= STENCIL_RTOL * scale:
+            raise AssertionError("[sharded] the padded stencil disagrees with the "
+                                 "normal operator of the real copies")
+        np.save(path, padded_coeffs.cpu().numpy())
+
+    # The one-process references: the --batch 2 step on the first batch, and
+    # the training run.
+    model = build_deeplab("xception", device=device)
+    first = torch.stack([torch.as_tensor(image, device=device)
+                         for _, image in images[:SHARDED_BATCH]])
+    kw = dict(th_factor=0.2, sr_types=SLICE_SR_TYPES, gram_coeffs=coeffs,
+              return_targets=True)
+    reference = asr_step(model, first, angles, shifts, sr_cfg, class_id, **kw)
+    start = init_params(DeepLabConfig(input_shape=(128, 128, 3), classes=21,
+                                      backbone="xception", weights=None,
+                                      final_upsample=True,
+                                      compute_dtype=SHARDED_TRAIN_DTYPE), seed=0)
+    rng = np.random.default_rng(7)
+    for entry in start.values():
+        if "gamma" in entry:
+            n = entry["gamma"].shape
+            entry["gamma"] = rng.uniform(0.25, 0.5, n).astype(np.float32)
+            entry["beta"] = (rng.choice([-1.0, 1.0], n)
+                             * rng.uniform(1.0, 2.0, n)).astype(np.float32)
+    save_params_npz(start, os.path.join(SHARDED_DIR, "start.npz"))
+    one, _ = train(sharded_train_args(os.path.join(SHARDED_DIR, "ckpt-one")))
+
+    # The world-1 NCCL group: the production backend's gather and broadcast.
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    mesh = make_mesh((1, 1))
+    batch_fn = make_asr_batch_fn(mesh, model, sr_cfg, class_id, **kw)
+    out = batch_fn(first[:1], *copy_block(mesh, angles, shifts))
+    dist.destroy_process_group()
+    single = asr_step(model, first[:1], angles, shifts, sr_cfg, class_id, **kw)
+    equal = {key: bool(torch.equal(out[key], single[key])) for key in single}
+    log(f"[sharded] nccl world 1, mesh (1, 1), one image: make_asr_batch_fn vs the "
+        f"one-process step, bit for bit per output: {json.dumps(equal)}")
+    if not all(equal.values()):
+        raise AssertionError("[sharded] the NCCL (1, 1) step differs from the one-process step")
+    del model, batch_fn
+    torch.cuda.empty_cache()
+
+    log(f"[sharded] {cards} card(s) visible; runs: "
+        + ", ".join(f"{r['label']} ({r['ranks']} {r['backend']} ranks, mesh "
+                    f"{tuple(r['mesh'])})" for r in runs)
+        + ("" if cards >= 2 else "; serve-sharded-aug2-nccl needs 2 cards: not run")
+        + "; the gloo ranks share card 0 (the harness's choice)")
+    t0 = time.perf_counter()
+    mp.spawn(_sharded_worker, args=({"seed": seed, "class_id": class_id, "runs": runs},),
+             nprocs=max(r["ranks"] for r in runs))
+    log(f"[sharded] ranks done in {time.perf_counter() - t0:.1f}s")
+
+    paths = {}
+    expected = expected_launches(SLICE_SR_TYPES)
+    for run in runs:
+        label = run["label"]
+        ranks = []
+        for rank in range(run["ranks"]):
+            with open(os.path.join(SHARDED_DIR, f"{label}.rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        launches = {name: sum(r["launches"][name] for r in ranks) for name in KERNELS}
+        if run["kind"] == "train":
+            losses = [r["losses"] for r in ranks]
+            log(f"[{label}] {run['ranks']} ranks, global batch {TRAIN_BATCH}, "
+                f"{SHARDED_TRAIN_DTYPE}: losses {losses[0]} against the one-process run's "
+                f"{one['losses']}; devices {ranks[0]['devices']}; launches "
+                f"{json.dumps(launches)}; peak per rank "
+                + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in ranks) + " GiB")
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[0], one["losses"]))
+            if any(l != losses[0] for l in losses) or not loss_err <= 1e-5 \
+                    or ranks[0]["devices"] != run["ranks"] or any(launches.values()):
+                raise AssertionError(f"[{label}] losses {losses} vs {one['losses']} "
+                                     f"(rel {loss_err:.3g}, bound 1e-5)")
+            shares = _check_train_state(
+                label, os.path.join(SHARDED_DIR, "ckpt-one", f"step_{SHARDED_TRAIN_STEPS}.npz"),
+                os.path.join(SHARDED_DIR, "ckpt-sharded", f"step_{SHARDED_TRAIN_STEPS}.npz"))
+            paths[label] = {"launches": launches, "loss_rel_err": loss_err,
+                            "bound_shares": shares,
+                            "peak_bytes": max(r["peak_bytes"] for r in ranks)}
+            continue
+        ious = {}
+        for data in range(run["mesh"][0]):
+            masks = np.load(os.path.join(SHARDED_DIR, f"{label}.masks{data}.npz"))
+            writer = next(r for r in ranks if r["data_index"] == data and r["aug_index"] == 0)
+            for t in SLICE_SR_TYPES:
+                for i, image in enumerate(writer["images"]):
+                    ious.setdefault(t, []).append(
+                        _iou(torch.as_tensor(masks[t][i]), reference[t][image].cpu()))
+        worst = {t: round(min(v), 5) for t, v in ious.items()}
+        lead = ranks[0]
+        per_batch = lead["steady_s_per_image"] * SHARDED_BATCH
+        log(f"[{label}] mesh {tuple(run['mesh'])}, {run['ranks']} {run['backend']} ranks, "
+            f"{lead['num_aug']} copies ({lead['num_valid']} real, {lead['copies']} a "
+            f"rank), {lead['n_images']} images in {lead['steps']} steps of "
+            f"{SHARDED_BATCH}: masks' IoU against the one-process --batch 2 path, worst "
+            f"per type {json.dumps(worst)} (bound {SHARDED_MIN_IOU}); targets finite "
+            f"{all(r['targets_finite'] for r in ranks)}; {per_batch:.3f} s/batch "
+            f"(ranks sharing one card, not a speed figure)")
+        for r in ranks:
+            per_step = {name: r["launches"][name] / r["steps"] for name in KERNELS}
+            log(f"[{label}] rank {r['rank']} (data {r['data_index']}, aug "
+                f"{r['aug_index']}): launches per step {json.dumps(per_step)}, expected "
+                f"{json.dumps(expected)}; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+            if per_step != {name: float(v) for name, v in expected.items()}:
+                raise AssertionError(f"[{label}] rank {r['rank']} launches {r['launches']} "
+                                     f"in {r['steps']} steps, expected {expected} a step")
+        if (lead["n_images"] != SHARDED_IMAGES or min(worst.values()) < SHARDED_MIN_IOU
+                or not all(r["targets_finite"] for r in ranks)):
+            raise AssertionError(f"[{label}] {lead['n_images']} images, IoU {worst}")
+        paths[label] = {"launches": launches, "launches_per_step_per_rank": expected,
+                        "steps": lead["steps"], "min_iou": worst,
+                        "s_per_batch_shared_card": per_batch,
+                        "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks]}
+    log(f"[sharded] phase done in {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 def check_target(model, device, image, class_id, coeffs, sr_cfg, angles, shifts):
     """The continuous SR target of one full-size image is finite, (512, 512, 1)."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
@@ -1874,6 +2292,9 @@ def main() -> None:
                              "instead (before and after in one call); that package "
                              "must have both kernels and "
                              "ops.shear_warp.paeth_coefficients / inverse_shifts")
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="run only the [sharded] phase (after the build and the "
+                             "stencil): prints no result line")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel phase (for tuning): prints no "
                              "result line")
@@ -1903,6 +2324,16 @@ def main() -> None:
         phase_kernel(device, angles, shifts)
         return
     coeffs = phase_stencil(device, angles, shifts, sr_cfg, "Xception")
+    if args.sharded_only:
+        from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import (
+            build_deeplab)
+
+        images = make_images(args.seed, SHARDED_IMAGES)
+        class_id = most_frequent_class(build_deeplab("xception", device=device),
+                                       images[0][1], device)
+        torch.cuda.empty_cache()
+        phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, args.seed)
+        return
     mob_coeffs = phase_stencil(device, angles, shifts, mob_sr_cfg, "MobileNetV2")
     # The serving paths come before the kernel cases and the CPU references,
     # so that no earlier phase's load is on the card or the host when they run.
@@ -1938,6 +2369,8 @@ def main() -> None:
     paths["robustness"] = phase_robustness(device, full_model, eval_images, eval_labels)
     del full_model
     torch.cuda.empty_cache()
+    paths.update(phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs,
+                               args.seed))
     kernel_results = phase_kernel(device, angles, shifts)
     phase_small_e2e(device)
     phase_operator_small(device)

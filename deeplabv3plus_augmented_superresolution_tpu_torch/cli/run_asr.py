@@ -16,7 +16,15 @@ or MobileNetV2. The same flag names and defaults, every flag ported.
       --images test_images/smoke_input.jpg --gt_dir <dir of <name>.png>
 
 ``serve`` carries the per-run flow for decoded images; ``main`` decodes
-files and calls it.
+files and calls it. Under torchrun (``WORLD_SIZE`` > 1) with ``--batch``
+> 1, the ranks form a (data, aug) mesh factored as the JAX CLI's: each
+step serves a global batch, each data group its slice of it, each rank of
+a group its block of the copies (``parallel/``); aug index 0 of each group
+writes and scores, and rank 0's summary covers every rank.
+
+  torchrun --nproc_per_node 4 -m \
+      deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr \
+      --images <dir> --batch 4
 """
 
 import argparse
@@ -32,12 +40,17 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Un
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..models.deeplab import DeepLab
+from ..ops.gram import RADIUS_X, RADIUS_Y
+from ..parallel.mesh import Mesh, initialize_distributed, make_mesh, rank_device
+from ..parallel.sharded import copy_block, make_asr_batch_fn, padded_sr_cfg
 from ..pipeline import asr_step, asr_step_multiclass, sample_augmentations
 from ..pipeline.augment import image_generator
 from ..pipeline.end_to_end import SR_TYPES
 from ..sr import SRConfig, load_stencil, precompute_gram_stencil, save_stencil
+from ..sr.solver import pad_copies
 from ..utils.profiling import StageTimer, trace_to
 from ._common import (IMG_SIZE, SEED, add_device_arg, add_sr_args,
                       build_deeplab, feature_size_of, make_sr_config, reads_one_stencil)
@@ -48,6 +61,12 @@ DEFAULT_CACHE_DIR = os.path.join(
 
 BATCH_NEEDS_SHARED_TTA = ("--batch requires the fixed-TTA-set mode "
                           "(drop --per_image_augs)")
+RANKS_NEED_BATCH = ("several ranks (WORLD_SIZE > 1) serve --batch > 1 images a "
+                    "step over a (data, aug) mesh; with --batch <= 1 every rank "
+                    "would serve every image")
+# The loop stages that rank 0's summary sums over the writing ranks.
+LOOP_STAGES = ("host_decode", "host_to_device", "dispatch", "device_fetch",
+               "encode_write_score")
 # Batches staged ahead of the card by the staging thread.
 STAGING_DEPTH = 2
 
@@ -310,6 +329,66 @@ def _staged(batches: Iterator[Tuple[List[str], torch.Tensor]], device: torch.dev
         thread.join(timeout=60)
 
 
+def mesh_shape(batch: int, world: int) -> Tuple[int, int]:
+    """The (data, aug) factors of a run over world ranks serving batch images
+    a step, as the JAX CLI factors its devices: the largest data axis that
+    divides both the batch and the rank count, the rest on aug."""
+    data = min(batch, world)
+    while world % data or batch % data:
+        data -= 1
+    return data, world // data
+
+
+def rank_share(items: Sequence, batch: int, mesh: Mesh) -> List[Tuple[bool, object]]:
+    """This rank's share of items served in global batches of ``batch``: data
+    group g takes items [g b, (g + 1) b) of each batch (b = batch / d). A
+    ragged last batch is first padded by repeating its last item, so every
+    rank takes part in every step; (False, item) marks such a repeat."""
+    b = batch // mesh.shape["data"]
+    lo = mesh.data_index * b
+    out: List[Tuple[bool, object]] = []
+    for start in range(0, len(items), batch):
+        chunk = list(items[start:start + batch])
+        real = [True] * len(chunk) + [False] * (batch - len(chunk))
+        chunk += chunk[-1:] * (batch - len(chunk))
+        out += list(zip(real[lo:lo + b], chunk[lo:lo + b]))
+    return out
+
+
+def _merge_summary(mesh: Mesh, summary: Dict, done: List[Tuple[float, int]],
+                   ious: Dict[str, List[float]], iou_keys: List[str], device) -> None:
+    """Every rank's summary becomes the run's (one all-reduce of sums, one of
+    maxima): images, the first step, the steady s/image (the longest span
+    of the writing ranks over the images they served after their first
+    step: the groups run side by side), the loop stages (summed over the
+    writers) and the IoUs (their mean over every scored image)."""
+    later = sum(n for _, n in done[1:])
+    span = done[-1][0] - done[0][0] if len(done) > 1 else 0.0
+    stages = summary["loop_stages"]
+    sums = [summary["n_images"], later]
+    for name in LOOP_STAGES:
+        sums += [stages.get(name, {}).get("total_s", 0.0), stages.get(name, {}).get("calls", 0)]
+    for key in iou_keys:
+        values = [v for v in ious.get(key, []) if not np.isnan(v)]
+        sums += [float(np.sum(values)), len(values)]
+    sums = mesh.all_reduce(torch.tensor(sums, dtype=torch.float64, device=device)).tolist()
+    maxes = mesh.all_reduce(torch.tensor([span, summary["first_image_s"] or 0.0],
+                                         dtype=torch.float64, device=device), "max").tolist()
+    summary["n_images"], later = int(sums[0]), sums[1]
+    summary["first_image_s"] = maxes[1]
+    summary["steady_s_per_image"] = maxes[0] / later if later else None
+    merged = {}
+    for i, name in enumerate(LOOP_STAGES):
+        total, calls = sums[2 + 2 * i], int(sums[3 + 2 * i])
+        if calls:
+            merged[name] = {"total_s": total, "calls": calls,
+                            "ms_per_call": total / calls * 1000}
+    summary["loop_stages"] = merged
+    base = 2 + 2 * len(LOOP_STAGES)
+    summary["ious"] = {key: sums[base + 2 * i] / sums[base + 2 * i + 1]
+                       for i, key in enumerate(iou_keys) if sums[base + 2 * i + 1]}
+
+
 def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRConfig,
           *, device, class_id: Union[int, Sequence[int]] = 8, mode: str = "argmax",
           th_factor: float = 0.2, angle_max: float = 0.15, shift_max: float = 80.0,
@@ -319,7 +398,8 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
           gt_dir: Optional[str] = None, cache_dir: str = "",
           gram_coeffs: Optional[torch.Tensor] = None, chunk_size: int = 0,
           writer_threads: int = 4, summary_json: str = "", timer=None,
-          loader: str = "arrays", profile_dir: Optional[str] = None) -> Dict:
+          loader: str = "arrays", profile_dir: Optional[str] = None,
+          mesh: Optional[Mesh] = None) -> Dict:
     """Serve (name, (H, W, 3) image in [0, 1]) pairs through ASR. An image is
     a float numpy array or a CPU tensor (the native ring's bf16 frames).
 
@@ -348,6 +428,17 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
     what decoded the images. profile_dir: a torch.profiler trace of the
     steps after the first (``utils.profiling.trace_to``), written when the
     writer pool has drained.
+
+    mesh (``parallel.make_mesh``, every rank calling serve together): batch
+    is the global batch, and images this rank's share of the run's images
+    (``rank_share``: its data group's batch / d images a step, a padding
+    repeat named None). The copy axis is padded to the aug axis, the
+    stencil extracted with the padded config on rank 0 (given, it must be
+    that one) and broadcast, and each step runs ``make_asr_batch_fn``'s
+    step on this rank's images and block of copies; aug index 0 of each
+    data group writes and scores. The summary's images, first step, steady
+    s/image, loop stages and IoUs are then the whole run's (every rank's
+    summary is), its mask fractions this rank's.
     """
     device = torch.device(device)
     class_ids = (int(class_id),) if isinstance(class_id, int) else tuple(class_id)
@@ -356,19 +447,38 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
     step_images = max(batch, 1)
     if label_map and (not multi or "aug" not in sr_types):
         raise ValueError("label_map needs several classes and 'aug' in sr_types")
-    if per_image_augs and step_images > 1:
+    if per_image_augs and (step_images > 1 or mesh is not None):
         raise ValueError(BATCH_NEEDS_SHARED_TTA)
     shared_stencil = not per_image_augs and uses_shared_stencil(sr_cfg, sr_types)
     if gram_coeffs is not None and not shared_stencil:
         raise ValueError("gram_coeffs needs a fixed TTA set and a solver that "
                          "reads one stencil for every solve")
+    writes = mesh is None or mesh.aug_index == 0
     angles = shifts = None
     if not per_image_augs:
         angles, shifts = sample_augmentations(torch.Generator().manual_seed(SEED),
                                               sr_cfg.num_aug, angle_max, shift_max,
                                               device=device)
+    if mesh is not None:
+        if step_images % mesh.shape["data"]:
+            raise ValueError(f"batch {batch} does not split over the "
+                             f"{mesh.shape['data']}-rank data axis")
+        step_images //= mesh.shape["data"]
+        padded = padded_sr_cfg(sr_cfg, mesh)
         if gram_coeffs is None and shared_stencil:
-            gram_coeffs = _stencil_for_run(angles, shifts, sr_cfg, cache_dir)
+            gram_coeffs = (_stencil_for_run(*pad_copies(angles, shifts, padded.num_aug),
+                                            padded, cache_dir)
+                           if mesh.rank == 0 else
+                           torch.empty((2 * RADIUS_Y + 1, 2 * RADIUS_X + 1)
+                                       + tuple(sr_cfg.output_size), device=device))
+        batch_fn = make_asr_batch_fn(
+            mesh, model, sr_cfg, class_ids if multi else class_ids[0], mode=mode,
+            th_factor=th_factor, sr_types=sr_types, chunk_size=chunk_size,
+            class_chunk=class_chunk, gram_coeffs=gram_coeffs,
+            return_label_map=label_map, timer=timer)
+        own_angles, own_shifts = copy_block(mesh, angles, shifts)
+    elif not per_image_augs and gram_coeffs is None and shared_stencil:
+        gram_coeffs = _stencil_for_run(angles, shifts, sr_cfg, cache_dir)
 
     out_keys = tuple(sorted(set(sr_types) | {"standard"}))
     lm_keys = ("label_map", "label_map_standard") if label_map else ()
@@ -429,14 +539,18 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
                                          device=device)
         kw = dict(mode=mode, th_factor=th_factor, sr_types=sr_types,
                   chunk_size=chunk_size, gram_coeffs=gram_coeffs, timer=timer)
-        if multi:
+        if mesh is not None:
+            out = batch_fn(batch_images, own_angles, own_shifts)
+        elif multi:
             out = asr_step_multiclass(model, batch_images, a, sh, sr_cfg, class_ids,
                                       class_chunk=class_chunk,
                                       return_label_map=label_map, **kw)
+        else:
+            out = asr_step(model, batch_images, a, sh, sr_cfg, class_ids[0], **kw)
+        if multi:
             planes = [out[k].transpose(0, 1) for k in out_keys] + \
                 [out[k][None] for k in lm_keys]
             return torch.cat(planes).to(torch.uint8)
-        out = asr_step(model, batch_images, a, sh, sr_cfg, class_ids[0], **kw)
         return torch.stack([out[k] for k in out_keys]).to(torch.uint8)
 
     writer = ArtifactWriter(writer_threads) if writer_threads else None
@@ -447,11 +561,12 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
     try:
         with _staged(host, device, loop_timer) as staged:
             for image_names, batch_images in staged:
+                image_names = [n for n in image_names if n is not None]
                 with loop_timer.stage("dispatch"):
                     packed = step(image_names, batch_images)[:, :len(image_names)]
-                if writer:
+                if writes and writer:
                     writer.submit(emit, image_names, packed)
-                else:
+                elif writes:
                     emit(image_names, packed)
                 n_images += len(image_names)
                 n_steps += 1
@@ -481,6 +596,12 @@ def serve(images: Iterable[Tuple[str, np.ndarray]], model: DeepLab, sr_cfg: SRCo
         "loop_stages": loop_timer.as_dict(),
         "stages": timer.as_dict() if timer is not None else {},
     }
+    if mesh is not None:
+        if not writes:
+            summary["n_images"] = 0
+        _merge_summary(mesh, summary, done, ious,
+                       series + [f"{k} (mIoU)" for k in lm_keys], device)
+        summary["mesh"] = dict(mesh.shape)
     if summary_json:
         with open(summary_json, "w") as f:
             json.dump(summary, f, indent=2)
@@ -552,27 +673,49 @@ def image_source(paths: List[str], prefetch: int, dtype: torch.dtype
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and args.batch <= 1:
+        raise SystemExit(RANKS_NEED_BATCH)
     paths = _resolve_paths(args.images, args.limit)
     if not paths:
         raise SystemExit(f"No images matched {args.images}")
-    device = torch.device(args.device)
+    device, mesh, joined = torch.device(args.device), None, False
+    if world > 1:
+        joined = not torch.distributed.is_initialized()
+        initialize_distributed(args.device)
+        device = rank_device(args.device)
+        mesh = make_mesh(mesh_shape(args.batch, world))
+    lead = mesh is None or mesh.rank == 0
     model = build_deeplab(args.backbone, args.weights_path, device=device)
     sr_cfg = make_sr_config(args, num_aug=args.num_aug,
                             feature_size=feature_size_of(model.cfg),
                             output_size=IMG_SIZE, angle_max=args.angle_max)
-    loader, images = image_source(paths, args.prefetch, model.cfg.dtype)
-    print(f"images decoded by the {loader}")
-    summary = serve(images, model, sr_cfg, device=device,
-                    class_id=parse_class_ids(args.class_id), mode=args.mode,
-                    th_factor=args.th_factor, angle_max=args.angle_max,
-                    shift_max=args.shift_max, sr_types=parse_sr_types(args.sr_types),
-                    label_map=args.label_map, class_chunk=args.class_chunk,
-                    batch=args.batch, per_image_augs=args.per_image_augs,
-                    output_dir=args.output_dir,
-                    gt_dir=args.gt_dir, cache_dir=args.cache_dir,
-                    chunk_size=args.chunk_size, writer_threads=args.writer_threads,
-                    summary_json=args.summary_json, loader=loader,
-                    profile_dir=args.profile_dir)
+    share = rank_share(paths, args.batch, mesh) if mesh is not None else None
+    loader, images = image_source([p for _, p in share] if share else paths,
+                                  args.prefetch, model.cfg.dtype)
+    if share:
+        images = ((name if real else None, image)
+                  for (real, _), (name, image) in zip(share, images))
+    if lead:
+        print(f"images decoded by the {loader}"
+              + (f"; mesh {mesh.shape} over {world} ranks" if mesh else ""))
+    try:
+        summary = serve(images, model, sr_cfg, device=device,
+                        class_id=parse_class_ids(args.class_id), mode=args.mode,
+                        th_factor=args.th_factor, angle_max=args.angle_max,
+                        shift_max=args.shift_max, sr_types=parse_sr_types(args.sr_types),
+                        label_map=args.label_map, class_chunk=args.class_chunk,
+                        batch=args.batch, per_image_augs=args.per_image_augs,
+                        output_dir=args.output_dir,
+                        gt_dir=args.gt_dir, cache_dir=args.cache_dir,
+                        chunk_size=args.chunk_size, writer_threads=args.writer_threads,
+                        summary_json=args.summary_json if lead else "", loader=loader,
+                        profile_dir=args.profile_dir, mesh=mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+    if not lead:
+        return summary
     msg = f"{summary['n_images']} images in {summary['wall_s']:.1f}s"
     if summary["steady_s_per_image"]:
         msg += f" ({summary['steady_s_per_image']:.3f} s/image steady"

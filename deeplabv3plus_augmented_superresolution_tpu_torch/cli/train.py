@@ -26,18 +26,33 @@ with the same flags and defaults:
     python -m deeplabv3plus_augmented_superresolution_tpu_torch.cli.train \\
         --steps 600 --size 128 --out train_run.json [--warp_augment] [--remat]
 
-Runs on the card unless ``--device cpu``. ``--devices``, ``--multihost``,
-``--data voc`` and ``--ckpt_format orbax`` exit naming what they wait for.
+Data parallel (``parallel/``): ``--devices N`` spawns N ranks, one per card
+(NCCL; gloo ranks on the CPU with ``--device cpu``), and ``--multihost``
+joins the process group of a torchrun launch, a rank per card:
+
+    torchrun --nnodes 2 --nproc_per_node 4 ... -m \
+        deeplabv3plus_augmented_superresolution_tpu_torch.cli.train --multihost
+
+Every rank draws the same global batch and warp draws from the chunk's
+generator and trains on its slice (``parallel.shard_train_batch``), with
+synchronised BatchNorm and one all-reduce of the gradient, so a run on N
+ranks takes the one-card run's steps on the same data. Rank 0 alone
+evaluates and writes checkpoints, ``--save_params`` and ``--out``.
+
+Runs on the card unless ``--device cpu``. ``--data voc`` and
+``--ckpt_format orbax`` exit naming what they wait for.
 """
 
 import argparse
 import json
 import os
+import tempfile
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..data.synthetic import synthetic_batch
 from ..metrics import mean_iou
@@ -46,6 +61,9 @@ from ..models import (DeepLabConfig, init_params, params_from_jax, resolve_param
 from ..models.deeplab import DeepLab
 from ..models.optim import make_optimizer
 from ..models.train import MasterParams, make_train_step
+from ..parallel.mesh import (Mesh, default_backend, free_port, initialize_distributed,
+                             make_mesh, make_multihost_mesh, rank_device)
+from ..parallel.sharded import make_sharded_train_step, shard_train_batch
 from ..pipeline.augment import sample_warp_draws, warp_augment_batch_with_draws
 from ..utils.checkpoint import load_train_state, restore_opt_state, save_train_state
 from ._common import NOT_PORTED, SEED
@@ -102,9 +120,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad_clip", type=float, default=0.0)
     ap.add_argument("--bn_momentum", type=float, default=0.9)
     ap.add_argument("--devices", type=int, default=0,
-                    help="data-parallel over N cards (not ported yet)")
+                    help="data-parallel over N cards: N ranks, one per card "
+                         "(0 or 1: one card)")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-host data parallelism (not ported yet)")
+                    help="multi-host data parallelism: join the process group "
+                         "of a torchrun launch (one rank per card)")
     ap.add_argument("--train_set", type=int, default=128,
                     help="synthetic: number of generated training scenes")
     ap.add_argument("--hard", action="store_true",
@@ -143,9 +163,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     message naming it."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.devices > 1 and args.batch % args.devices:
+        ap.error(batch_split_error(args.batch, args.devices))
     checks = [
-        (args.devices != 0, "--devices", NOT_PORTED.format("parallel/")),
-        (args.multihost, "--multihost", NOT_PORTED.format("parallel/")),
         (args.data == "voc", "--data voc",
          NOT_PORTED.format("the remaining CLIs and host side")),
         (args.ckpt_format == "orbax", "--ckpt_format orbax", ORBAX_NOT_PORTED),
@@ -156,6 +176,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if problems:
         ap.error("; ".join(problems))
     return args
+
+
+def batch_split_error(batch: int, ranks: int) -> str:
+    """The JAX CLI's message for a batch that does not split over the mesh."""
+    return f"--batch {batch} must divide the {ranks}-device mesh"
 
 
 def synthetic_eval_fn(args, cfg: DeepLabConfig, eval_imgs: np.ndarray,
@@ -183,15 +208,22 @@ def chunk_seed(seed: int, step: int) -> int:
     return (int(seed) << 32) + int(step)
 
 
-def train(args: argparse.Namespace) -> Tuple[Dict, Dict]:
+def train(args: argparse.Namespace, mesh: Optional[Mesh] = None) -> Tuple[Dict, Dict]:
     """Run the training of ``args`` (from ``parse_args``). Returns (summary,
     timing): the summary has the reference's keys (``train_s`` from the
     data's generation to the final evaluation, as there); timing holds the
     host clock (s since the loop started) at the end of the first step
     (``first_step_s``, one synchronisation) and at each chunk's end
     (``chunk_ends``: (steps done, seconds), each after the chunk's losses
-    were fetched)."""
+    were fetched).
+
+    mesh: data parallel over its ranks (every rank calls train together,
+    ``args.device`` its own device): each step's global batch of
+    ``args.batch`` is drawn on every rank and each trains on its slice;
+    the losses are the global batch's. Only rank 0 evaluates (the others'
+    held-out mIoU is None) and writes checkpoints and ``--save_params``."""
     device = torch.device(args.device)
+    lead = mesh is None or mesh.rank == 0
     cfg = DeepLabConfig(
         input_shape=(args.size, args.size, 3), classes=args.classes,
         backbone=args.backbone, alpha=args.alpha, weights=None,
@@ -215,8 +247,18 @@ def train(args: argparse.Namespace) -> Tuple[Dict, Dict]:
         except ValueError as e:
             print(f"[train] WARNING: checkpoint optimizer state does not fit the "
                   f"requested optimizer ({e}); starting the optimizer fresh")
-    step = make_train_step(DeepLab(cfg, device="meta"), tx, bn_momentum=args.bn_momentum,
-                           remat=args.remat, skip_nonfinite=args.skip_nonfinite)
+    if mesh is not None:
+        if args.batch % mesh.size:
+            raise SystemExit(batch_split_error(args.batch, mesh.size))
+        step = make_sharded_train_step(mesh, DeepLab(cfg, device="meta"), tx,
+                                       bn_momentum=args.bn_momentum, remat=args.remat,
+                                       skip_nonfinite=args.skip_nonfinite)
+        if lead:
+            print(f"[train] data-parallel over {mesh.size} devices (mesh {mesh.shape})")
+    else:
+        step = make_train_step(DeepLab(cfg, device="meta"), tx,
+                               bn_momentum=args.bn_momentum, remat=args.remat,
+                               skip_nonfinite=args.skip_nonfinite)
 
     t0 = time.time()   # train_s counts from the data's generation, as the reference's
     rng = np.random.default_rng(args.seed)
@@ -226,7 +268,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict, Dict]:
     eval_imgs, eval_labs = synthetic_batch(rng, args.eval_images, size=size,
                                            class_ids=tuple(args.class_ids),
                                            hard=args.hard)
-    evaluate = synthetic_eval_fn(args, cfg, eval_imgs, eval_labs, device)
+    evaluate = synthetic_eval_fn(args, cfg, eval_imgs, eval_labs, device) if lead else None
     ds_img = torch.as_tensor((imgs * 255).astype(np.uint8), device=device)
     ds_lab = torch.as_tensor(labs.astype(np.uint8), device=device)
     shift_max = (args.warp_shift_max if args.warp_shift_max >= 0
@@ -234,7 +276,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict, Dict]:
     gen = torch.Generator(device=device)
 
     def maybe_checkpoint(done: int) -> None:
-        if not (args.ckpt_dir and done % args.ckpt_every == 0):
+        if not (lead and args.ckpt_dir and done % args.ckpt_every == 0):
             return
         path = os.path.join(args.ckpt_dir, f"step_{done}.npz")
         save_train_state(path, master, opt_state, done)
@@ -256,10 +298,14 @@ def train(args: argparse.Namespace) -> Tuple[Dict, Dict]:
                                       shift_max, device=device)
         chunk = []
         for i in range(n):
-            im = ds_img[idx[i]].float() / 255.0
-            lb = ds_lab[idx[i]]
+            im, lb = ds_img[idx[i]], ds_lab[idx[i]]
+            draw = [d[i] for d in draws] if args.warp_augment else []
+            if mesh is not None:   # this rank's slice of the global batch
+                im, lb = shard_train_batch(mesh, im, lb)
+                draw = [shard_train_batch(mesh, d, d)[0] for d in draw]
+            im = im.float() / 255.0
             if args.warp_augment:
-                im, lb = warp_augment_batch_with_draws(im, lb, *(d[i] for d in draws))
+                im, lb = warp_augment_batch_with_draws(im, lb, *draw)
             master, opt_state, loss = step(master, opt_state, im, lb)
             chunk.append(loss)
             if timing["first_step_s"] is None:
@@ -268,22 +314,23 @@ def train(args: argparse.Namespace) -> Tuple[Dict, Dict]:
         losses.extend(torch.stack(chunk).tolist())  # the chunk's one fetch
         done += n
         timing["chunk_ends"].append((done, time.time() - t_loop))
-        print(f"[train] step {done}/{total_steps} loss {losses[-1]:.4f}", flush=True)
+        if lead:
+            print(f"[train] step {done}/{total_steps} loss {losses[-1]:.4f}", flush=True)
         maybe_checkpoint(done)
-        if args.eval_every and done % args.eval_every == 0:
+        if lead and args.eval_every and done % args.eval_every == 0:
             evals[done] = evaluate(master)
             print(f"[train] step {done} held-out mIoU {evals[done]:.4f}")
-    final_miou = evaluate(master)
+    final_miou = evaluate(master) if lead else None
     train_s = time.time() - t0
 
-    if args.save_params:
+    if lead and args.save_params:
         save_params_npz(master.numpy_params(), args.save_params)
         print(f"[train] final params -> {args.save_params} "
               "(drop into any CLI's --weights_path)")
     summary = {
         "backbone": args.backbone, "size": args.size, "steps": args.steps,
         "start_step": start_step, "total_steps": total_steps,
-        "global_batch": args.batch, "devices": 1,
+        "global_batch": args.batch, "devices": mesh.size if mesh is not None else 1,
         "optimizer": args.optimizer, "lr_schedule": args.lr_schedule,
         "remat": args.remat, "compute_dtype": args.compute_dtype,
         "loss_first": losses[0] if losses else None,
@@ -296,9 +343,58 @@ def train(args: argparse.Namespace) -> Tuple[Dict, Dict]:
     return summary, timing
 
 
+def _rank_main(rank: int, args: argparse.Namespace, port: int, out: str) -> None:
+    """One rank of ``--devices``: joins the group (NCCL on cards, gloo on the
+    CPU), takes card ``rank``, trains on the (1, N) mesh; rank 0 writes the
+    summary to ``out``."""
+    device = rank_device(args.device, local_rank=rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        default_backend(device), init_method=f"tcp://localhost:{port}",
+        world_size=args.devices, rank=rank)
+    try:
+        summary, _ = train(argparse.Namespace(**{**vars(args), "device": str(device)}),
+                           make_mesh((1, args.devices)))
+    finally:
+        torch.distributed.destroy_process_group()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(summary, f)
+
+
+def run(args: argparse.Namespace) -> Dict:
+    """The training of ``args`` on one card, on ``--devices`` ranks of this
+    host, or as this process's rank of a ``--multihost`` launch; returns
+    rank 0's summary (another rank of a multi-host launch: its own)."""
+    if args.devices > 1:
+        if torch.device(args.device).type == "cuda" and \
+                torch.cuda.device_count() < args.devices:
+            raise SystemExit(f"--devices {args.devices} needs {args.devices} cards: "
+                             f"{torch.cuda.device_count()} visible")
+        import torch.multiprocessing as mp
+
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "summary.json")
+            mp.spawn(_rank_main, args=(args, free_port(), out), nprocs=args.devices)
+            with open(out) as f:
+                return json.load(f)
+    if args.multihost:
+        initialize_distributed(args.device)
+        try:
+            device = rank_device(args.device)
+            return train(argparse.Namespace(**{**vars(args), "device": str(device)}),
+                         make_multihost_mesh())[0]
+        finally:
+            torch.distributed.destroy_process_group()
+    return train(args)[0]
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
-    summary, _ = train(args)
+    summary = run(args)
+    if args.multihost and int(os.environ.get("RANK", "0")) != 0:
+        return summary
     print(json.dumps(summary))
     if args.out:
         with open(args.out, "w") as f:

@@ -367,8 +367,8 @@ class DeepLab(nn.Module):
         return out
 
     def forward_train(self, image: torch.Tensor,
-                      params: Dict[str, Dict[str, torch.Tensor]], remat: bool = False
-                      ) -> Tuple[torch.Tensor, BNStats]:
+                      params: Dict[str, Dict[str, torch.Tensor]], remat: bool = False,
+                      sync_group=None) -> Tuple[torch.Tensor, BNStats]:
         """The forward in training mode: weights from ``params`` (f32 master
         tensors keyed like ``weights.params_from_jax``'s dict), cast to the
         compute dtype in the graph; batch-statistics BatchNorm. Returns
@@ -376,6 +376,8 @@ class DeepLab(nn.Module):
         its batch (mean, var). The module's own buffers are not read, so a
         model built on the "meta" device serves. remat=True checkpoints each
         block of the backbone, ASPP and the decoder (``layers.segment``):
-        the same numbers, activations recomputed in the backward."""
-        store = BatchStatStore(params, remat=remat)
+        the same numbers, activations recomputed in the backward.
+        sync_group: synchronised BatchNorm over that process group's ranks
+        (``layers.BatchStatStore``)."""
+        store = BatchStatStore(params, remat=remat, sync_group=sync_group)
         return self.forward(image, store), store.bn_batch_stats

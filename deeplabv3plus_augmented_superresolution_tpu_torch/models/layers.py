@@ -23,6 +23,7 @@ with the batch's statistics and records them (the reference's
 from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -58,11 +59,18 @@ class BatchStatStore:
     decoder; ``segment``) under ``torch.utils.checkpoint``: its activations
     are recomputed in the backward pass instead of kept. The recomputation
     records its statistics into a store of its own that is thrown away, so
-    each layer's statistics are recorded once, from the forward pass."""
+    each layer's statistics are recorded once, from the forward pass.
 
-    def __init__(self, params: Dict[str, Dict[str, torch.Tensor]], remat: bool = False):
+    sync_group: a torch.distributed process group whose ranks each hold an
+    equal slice of the batch; BatchNorm then takes the statistics of the
+    whole batch (synchronised BatchNorm), through differentiable
+    all-reduces. None: this process's batch alone."""
+
+    def __init__(self, params: Dict[str, Dict[str, torch.Tensor]], remat: bool = False,
+                 sync_group=None):
         self.params = params
         self.remat = remat
+        self.sync_group = sync_group
         self.bn_batch_stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -74,7 +82,7 @@ def segment(module: nn.Module, store: Optional[BatchStatStore], *args):
     from torch.utils.checkpoint import checkpoint
 
     def run(*inputs):
-        own = BatchStatStore(store.params)
+        own = BatchStatStore(store.params, sync_group=store.sync_group)
         return module(*inputs, own), own.bn_batch_stats
 
     out, stats = checkpoint(run, *args, use_reentrant=False)
@@ -225,14 +233,53 @@ class BatchNorm(KerasLayer):
         batch norm nor a fused multiply-add: the gradient at init is
         sensitive to rounding (ReLU inputs within rounding of 0 flip), and
         the reference's own arithmetic keeps the port closest to it
-        (tests/test_torch_train.py)."""
+        (tests/test_torch_train.py). With the store's sync_group, the
+        statistics of the batch that the group's ranks share
+        (``_synced_var_mean``)."""
         entry = store.params[self.keras_name]
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        if store.sync_group is None:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        else:
+            var, mean = _synced_var_mean(xf, store.sync_group)
         store.bn_batch_stats[self.keras_name] = (mean.detach(), var.detach())
         scale = entry["gamma"] / torch.sqrt(var + self.epsilon)
         shift = entry["beta"] - mean * scale
         return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of x over the ranks of group; its cotangent is summed over
+    them too, as each rank's loss is one term of the sum the ranks minimise."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _synced_var_mean(xf: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(biased variance, mean) per channel over (N, H, W) of the batch of
+    which every rank of group holds an equal (N, C, H, W) slice: the mean
+    from the all-reduced sum, then the variance from the all-reduced sum of
+    squared deviations from it, two passes as the reference's jnp.var
+    (sum and sum of squares in one pass would lose the variance of a
+    channel whose mean is large to cancellation). The all-reduces are
+    differentiable: each rank's backward takes the cotangents of every
+    rank's loss through the statistics."""
+    n = xf.numel() // xf.shape[1] * dist.get_world_size(group)
+    mean = _AllReduceSum.apply(xf.sum(dim=(0, 2, 3)), group) / n
+    dev = xf - mean[:, None, None]
+    var = _AllReduceSum.apply((dev * dev).sum(dim=(0, 2, 3)), group) / n
+    return var, mean
 
 
 class SepConvBN(nn.Module):

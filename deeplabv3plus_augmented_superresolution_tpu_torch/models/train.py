@@ -21,6 +21,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .deeplab import BNStats, DeepLab
 from .optim import OptState, TrainOptimizer
@@ -78,11 +79,12 @@ class MasterParams:
 
 
 def forward_train(model: DeepLab, params: TorchParams, images: torch.Tensor,
-                  remat: bool = False) -> Tuple[torch.Tensor, BNStats]:
+                  remat: bool = False, sync_group=None) -> Tuple[torch.Tensor, BNStats]:
     """Forward pass with batch-statistics BatchNorm: (logits, bn_batch_stats),
     the latter mapping each BN layer's name to its batch (mean, var); feed it
-    to ``update_bn_stats``."""
-    return model.forward_train(images, params, remat=remat)
+    to ``update_bn_stats``. sync_group: the statistics of the batch that
+    the group's ranks share (synchronised BatchNorm)."""
+    return model.forward_train(images, params, remat=remat, sync_group=sync_group)
 
 
 @torch.no_grad()
@@ -100,21 +102,28 @@ def update_bn_stats(params: TorchParams, stats: BNStats,
     return params
 
 
-def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy over pixels whose label != 255, in f32.
-
-    logits: (..., H, W, C); labels: (..., H, W) integer in [0, C) or 255."""
+def _nll_sum_and_count(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The summed softmax cross-entropy (f32) of the pixels whose label !=
+    255, and their count (int64)."""
     labels = labels.to(torch.int64)
     valid = labels != 255
     safe = torch.where(valid, labels, 0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
+def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over pixels whose label != 255, in f32.
+
+    logits: (..., H, W, C); labels: (..., H, W) integer in [0, C) or 255."""
+    nll, count = _nll_sum_and_count(logits, labels)
+    return nll / count.clamp_min(1)
 
 
 def build_train_step(model: DeepLab, tx: TrainOptimizer, bn_momentum: float = 0.9,
-                     remat: bool = False, skip_nonfinite: bool = False):
+                     remat: bool = False, skip_nonfinite: bool = False, mesh=None):
     """step(master, opt_state, images, labels) -> (master, opt_state, loss).
 
     images: (B, H, W, 3) f32 in [0, 1] on the master's device; labels
@@ -129,17 +138,44 @@ def build_train_step(model: DeepLab, tx: TrainOptimizer, bn_momentum: float = 0.
     makes the step atomic: when the loss or any gradient is non-finite,
     params, optimizer state (counts included) and moving statistics all
     stay as they were, by device-side selects (no host synchronisation).
+
+    mesh (``parallel.Mesh``, inside a process group): data parallel over
+    every rank, each with its slice of the global batch
+    (``parallel.shard_train_batch``). The first step broadcasts the
+    parameters from rank 0; BatchNorm takes the global batch's statistics
+    (synchronised); each rank's loss is its pixels' share of the global
+    mean (its summed cross-entropy over the global count of valid
+    pixels), so one all-reduce (sum) of the flat gradient gives every rank
+    the gradient of the global-batch mean loss, and the guard, the
+    optimizer and the EMA then run on equal inputs on every rank. The
+    returned loss is the global mean.
     """
+    group = None
+    if mesh is not None and dist.is_initialized():
+        group = dist.group.WORLD
+    synced = [mesh is None]
+
     def step(master: MasterParams, opt_state: OptState, images: torch.Tensor,
              labels: torch.Tensor):
+        if not synced[0]:
+            mesh.broadcast(master.flat)
+            synced[0] = True
         master.grad.zero_()
         with torch.enable_grad():
-            logits, stats = forward_train(model, master.params, images, remat=remat)
+            logits, stats = forward_train(model, master.params, images, remat=remat,
+                                          sync_group=group)
             if logits.shape[1:3] != labels.shape[1:3]:
                 raise ValueError("labels must match the logits resolution; "
                                  "train with final_upsample=True or resize")
-            loss = segmentation_loss(logits, labels)
+            if mesh is None:
+                loss = segmentation_loss(logits, labels)
+            else:
+                nll, count = _nll_sum_and_count(logits, labels)
+                loss = nll / mesh.all_reduce(count).clamp_min(1)
         loss.backward()
+        if mesh is not None:
+            mesh.all_reduce(master.grad)
+            loss = mesh.all_reduce(loss.detach())
         with torch.no_grad():
             new_flat, new_state = tx.update(master.grad, opt_state, master.flat)
             update_bn_stats(master.views(new_flat), stats, bn_momentum)

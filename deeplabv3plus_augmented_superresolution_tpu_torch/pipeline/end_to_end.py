@@ -14,10 +14,15 @@ B x K target planes in b, the solve and the inverse warp), so a batch
 launches the kernels as often as one image does, and one solve covers all
 its planes. Eager PyTorch: each stage enqueues its device work in order;
 nothing here synchronizes unless a timer asks to.
+
+Given a ``CopyShard`` (``parallel/``), a step warps and forwards only this
+rank's block of the copies, then gathers the raw masks of every block
+before the normalization and the solve, which run on the whole (padded)
+stack as on one card.
 """
 
 import contextlib
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +41,15 @@ def _stage(timer, name: str):
     return timer.stage(name) if timer is not None else contextlib.nullcontext()
 
 
+class CopyShard(NamedTuple):
+    """This rank's block of the copy axis: the block's transforms, and
+    gather, which takes the block's mask stacks (copy axis -4; None passes
+    through) and returns the whole stacks, every rank's block in its place."""
+    angles: torch.Tensor
+    shifts: torch.Tensor
+    gather: Callable[..., Tuple[Optional[torch.Tensor], ...]]
+
+
 def _check_sr_types(sr_types) -> None:
     unknown = [t for t in sr_types if t not in SR_FUNCTIONS]
     if unknown:
@@ -45,11 +59,11 @@ def _check_sr_types(sr_types) -> None:
 def _forward(model: DeepLab, images: torch.Tensor, angles, shifts, sr_cfg: SRConfig,
              chunk_size: int, timer) -> torch.Tensor:
     """The copies warp and the network forward of a (B, H, W, 3) batch:
-    (B, N, h, w, classes) logits. The network runs on the copies in
-    copy-major order (a free view of the warp's output); chunk_size cuts it
-    into forwards of chunk_size copies of every image."""
+    (B, N, h, w, classes) logits, N = len(angles). The network runs on the
+    copies in copy-major order (a free view of the warp's output);
+    chunk_size cuts it into forwards of chunk_size copies of every image."""
     b = images.shape[0]
-    num_aug = sr_cfg.num_aug
+    num_aug = angles.shape[0]
     with _stage(timer, "warp"):
         # Warp in the model's compute dtype: the forward casts its input to it
         # at entry anyway, and the kernel blends in f32 either way.
@@ -62,6 +76,18 @@ def _forward(model: DeepLab, images: torch.Tensor, angles, shifts, sr_cfg: SRCon
         else:
             preds = model(copies)
     return preds.unflatten(0, (num_aug, b)).transpose(0, 1)
+
+
+def _masks(preds, extract, mode: str, copies: Optional[CopyShard], timer):
+    """The OPM stage: extract(preds) -> (class masks, max masks or None),
+    normalized. Sharded, the stage "gather" assembles the whole stacks from
+    the blocks and normalizes them (the normalization reads every copy)."""
+    with _stage(timer, "opm"):
+        masks = extract(preds)
+        if copies is None:
+            return prepare_sr_inputs(*masks, mode)
+    with _stage(timer, "gather"):
+        return prepare_sr_inputs(*copies.gather(*masks), mode)
 
 
 def _standard_labels(model: DeepLab, preds: torch.Tensor) -> torch.Tensor:
@@ -87,7 +113,8 @@ def asr_step(model: DeepLab, image: torch.Tensor, angles: torch.Tensor,
              gram_coeffs: Optional[torch.Tensor] = None,
              return_targets: bool = False,
              timer=None,
-             dropout_generator: Optional[torch.Generator] = None
+             dropout_generator: Optional[torch.Generator] = None,
+             copies: Optional[CopyShard] = None
              ) -> Dict[str, torch.Tensor]:
     """Full ASR for one (H, W, 3) image on the model's device. Returns the
     thresholded HR mask of each SR type and "standard", each (H, W, 1)
@@ -100,16 +127,19 @@ def asr_step(model: DeepLab, image: torch.Tensor, angles: torch.Tensor,
     (sr.precompute_gram_stencil) for the run's fixed augmentation set.
     timer: optional object with a ``stage(name)`` context manager
     (utils.profiling.StageTimer), given the stages warp, forward, opm,
-    max_mean, b, solve_steps, threshold and standard. dropout_generator:
-    draws the solve's copy-dropout mask (sr.augmented_superresolution), one
-    for the batch.
+    max_mean, b, solve_steps, threshold and standard (and gather when
+    sharded). dropout_generator: draws the solve's copy-dropout mask
+    (sr.augmented_superresolution), one for the batch. copies: this rank's
+    block of the copies (``CopyShard``); angles and shifts are then the
+    whole padded set, and "standard" is the block's first copy's (the
+    identity copy's on the rank that holds copy 0).
     """
     _check_sr_types(sr_types)
     images, batched = _as_batch(image)
-    preds = _forward(model, images, angles, shifts, sr_cfg, chunk_size, timer)
-    with _stage(timer, "opm"):
-        class_masks, max_masks = extract_masks(preds, class_id, mode)
-        class_masks, max_masks = prepare_sr_inputs(class_masks, max_masks, mode)
+    own = (copies.angles, copies.shifts) if copies is not None else (angles, shifts)
+    preds = _forward(model, images, *own, sr_cfg, chunk_size, timer)
+    class_masks, max_masks = _masks(preds, lambda p: extract_masks(p, class_id, mode),
+                                    mode, copies, timer)
     slice_max = mode == "slice_max" and max_masks is not None
 
     # (target, target of the max stack or None) per SR type; the B images'
@@ -168,7 +198,8 @@ def asr_step_multiclass(model: DeepLab, image: torch.Tensor, angles: torch.Tenso
                         return_label_map: bool = False,
                         label_map_rule: str = "class_peak",
                         timer=None,
-                        dropout_generator: Optional[torch.Generator] = None
+                        dropout_generator: Optional[torch.Generator] = None,
+                        copies: Optional[CopyShard] = None
                         ) -> Dict[str, torch.Tensor]:
     """ASR for one image over K classes: one copies warp and one forward feed
     every class, and the K solves share the stencil. Returns the asr_step
@@ -186,19 +217,23 @@ def asr_step_multiclass(model: DeepLab, image: torch.Tensor, angles: torch.Tenso
     return_label_map: also "label_map", the (H, W, 1) full-scene label map
     combined from the per-class aug targets by ``label_map_rule``
     (sr.postprocess.combine_label_map), and "label_map_standard", the plain
-    model's upsampled argmax labels. Needs "aug" in sr_types.
+    model's upsampled argmax labels. Needs "aug" in sr_types. copies: as
+    in ``asr_step``.
     """
     _check_sr_types(sr_types)
     class_ids = tuple(int(c) for c in class_ids)
     images, batched = _as_batch(image)
-    preds = _forward(model, images, angles, shifts, sr_cfg, chunk_size, timer)
+    own = (copies.angles, copies.shifts) if copies is not None else (angles, shifts)
+    preds = _forward(model, images, *own, sr_cfg, chunk_size, timer)
     cls = torch.as_tensor(class_ids, device=preds.device)
-    with _stage(timer, "opm"):
+
+    def extract(p):
         # (B, K, N, h, w, 1) -> one (B*K, N, h, w, 1) stack, normalized per plane
-        class_masks, max_masks = extract_masks_multiclass(preds, class_ids, mode)
-        class_masks, max_masks = prepare_sr_inputs(
-            class_masks.flatten(0, 1),
-            max_masks.flatten(0, 1) if max_masks is not None else None, mode)
+        class_masks, max_masks = extract_masks_multiclass(p, class_ids, mode)
+        return (class_masks.flatten(0, 1),
+                max_masks.flatten(0, 1) if max_masks is not None else None)
+
+    class_masks, max_masks = _masks(preds, extract, mode, copies, timer)
     slice_max = mode == "slice_max" and max_masks is not None
     chunks = _class_chunks(len(class_ids), class_chunk)
     b, k = images.shape[0], len(class_ids)

@@ -20,8 +20,10 @@ inverse-warped copies. The operator is fused (the decimations inside the
 shear chain) or staged (the warp at full resolution, then the resize), the
 warp the shear passes or the gather warp of ``ops/warp.py``
 (``warp_impl="gather"``, always staged); the staged operator warps in
-bfloat16 with ``solve_dtype="bfloat16"``. Aug-axis padding (``num_valid``)
-raises until ``parallel/`` is ported.
+bfloat16 with ``solve_dtype="bfloat16"``. With aug-axis padding (``num_valid`` <
+``num_aug``, set by ``parallel/`` when the copies do not divide the aug
+axis) the copies from ``num_valid`` on are identity transforms that every
+data term weights 0, max ignores and mean does not count.
 
 Random draws (the dropout mask, the minibatch order) come from a
 ``torch.Generator``, whose stream differs from jax.random's, so the tests
@@ -48,7 +50,6 @@ SOLVERS = ("gram", "cg", "direct")
 # Seed of the minibatch order when the solve is given no generator (the
 # reference folds 997 into its default key, so its order is fixed too).
 MINIBATCH_SEED = 997
-NOT_PORTED_PADDING = "ROADMAP Queue 1: 'parallel/'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,8 +126,6 @@ def forward_operator(target: torch.Tensor, angles: torch.Tensor,
                        output_size=tuple(target.shape[-2:] if target.dim() == 3
                                          else target.shape[-3:-1]),
                        warp_impl="gather")
-    if cfg.num_valid and cfg.num_valid != cfg.num_aug:
-        raise NotImplementedError(f"aug-axis padding is not ported yet ({NOT_PORTED_PADDING})")
     if cfg.operator_impl == "fused" and cfg.warp_impl == "shear":
         return fused_warp_downsample(target, angles, shifts, tuple(feature_size),
                                      cfg.angle_max)
@@ -156,12 +155,38 @@ def _extract(cfg: SRConfig):
             else extract_gram_stencil)
 
 
+def valid_weights(cfg: SRConfig) -> Optional[torch.Tensor]:
+    """(num_aug,) 0/1 float32 mask of the real copies (CPU), or None when the
+    aug axis is not padded."""
+    if cfg.n_valid == cfg.num_aug:
+        return None
+    return (torch.arange(cfg.num_aug) < cfg.n_valid).to(torch.float32)
+
+
+def pad_copies(angles: torch.Tensor, shifts: torch.Tensor, num_aug: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A set of n <= num_aug copies padded to num_aug with identity
+    transforms (angle 0, shift 0) at the end."""
+    extra = num_aug - angles.shape[0]
+    if extra <= 0:
+        return angles, shifts
+    return (torch.nn.functional.pad(angles, (0, extra)),
+            torch.nn.functional.pad(shifts, (0, 0, 0, extra)))
+
+
 def precompute_gram_stencil(angles: torch.Tensor, shifts: torch.Tensor,
                             cfg: SRConfig) -> torch.Tensor:
     """Stencil coefficients (Sy, Sx, H, W) of G for a FIXED augmentation set,
-    reusable by every solve that shares (angles, shifts, cfg)."""
+    reusable by every solve that shares (angles, shifts, cfg). With a padded
+    cfg a shorter set is padded with identity copies, and the padded copies
+    are weighted 0."""
+    angles, shifts = pad_copies(angles, shifts, cfg.num_aug)
+    valid = valid_weights(cfg)
+    if valid is not None:
+        valid = valid.to(angles.device)
+
     def fwd(z):
-        return forward_operator(z, angles, shifts, cfg.feature_size, cfg)
+        return _weigh(forward_operator(z, angles, shifts, cfg.feature_size, cfg), valid)
 
     return _extract(cfg)(_normal_op(fwd), tuple(cfg.output_size),
                          RADIUS_Y, RADIUS_X, device=angles.device)
@@ -202,15 +227,18 @@ def sr_loss(target: torch.Tensor, lr_masks: torch.Tensor, angles: torch.Tensor,
 
 def dropout_weights(generator: Optional[torch.Generator],
                     cfg: SRConfig) -> Optional[torch.Tensor]:
-    """0/1 copy weights with int(n_valid * copy_dropout) zeros in an order
-    drawn from generator (CPU float32), or None when nothing is dropped: no
-    generator (the reference's ``dropout_key=None``) or no whole copy to drop."""
+    """(num_aug,) 0/1 copy weights (CPU float32): int(n_valid * copy_dropout)
+    zeros among the real copies in an order drawn from generator, then a 0
+    for each padded copy. Without a generator (the reference's
+    ``dropout_key=None``) or a whole copy to drop, the padding mask alone
+    (``valid_weights``: None when unpadded)."""
     n_valid = cfg.n_valid
     n_drop = int(n_valid * cfg.copy_dropout)
     if n_drop == 0 or generator is None:
-        return None
+        return valid_weights(cfg)
     base = torch.cat([torch.zeros(n_drop), torch.ones(n_valid - n_drop)])
-    return base[torch.randperm(n_valid, generator=generator)]
+    weights = base[torch.randperm(n_valid, generator=generator)]
+    return torch.cat([weights, torch.zeros(cfg.num_aug - n_valid)])
 
 
 def minibatch_permutation(generator: Optional[torch.Generator],
@@ -384,10 +412,11 @@ def _direct_solve(target, lr_masks, angles, shifts, cfg: SRConfig, timer=None,
     application. With perm (a copy minibatch), the copies are put in that
     order once, its head of sgd_copies appended, and step i reads the
     contiguous window starting at (i * sgd_copies) % n_valid, its data term
-    scaled by n_valid / sgd_copies. Returns ((K, H, W, 1), (K,) losses of the
-    last step)."""
+    scaled by n_valid / sgd_copies: the order holds only real copies, so a
+    padded aug axis drops out. Without perm every step reads every copy.
+    Returns ((K, H, W, 1), (K,) losses of the last step)."""
     n_valid = cfg.n_valid
-    window, scale = n_valid, 1.0
+    cut, scale = slice(None), 1.0
     if perm is not None:
         window, scale = cfg.sgd_copies, n_valid / cfg.sgd_copies
         perm = perm.to(lr_masks.device)
@@ -404,7 +433,9 @@ def _direct_solve(target, lr_masks, angles, shifts, cfg: SRConfig, timer=None,
         tgt = target
         loss = None
         for it in range(cfg.num_iter):
-            cut = slice((it * window) % n_valid, (it * window) % n_valid + window)
+            if perm is not None:
+                start = (it * window) % n_valid
+                cut = slice(start, start + window)
             cw = copy_weights[cut] if copy_weights is not None else None
             with torch.enable_grad():
                 z = tgt.detach().requires_grad_(True)
@@ -424,15 +455,17 @@ def solve_with_draws(lr_masks: torch.Tensor, angles: torch.Tensor,
                      gram_coeffs: Optional[torch.Tensor] = None,
                      timer=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``augmented_superresolution`` with its random draws given as tensors:
-    copy_weights (num_aug,) 0/1, or None for every copy; perm (n_valid,),
-    the minibatch order, used when sgd_copies minibatches (drawn from
-    MINIBATCH_SEED when None)."""
+    copy_weights (num_aug,) 0/1, or None for every real copy (the padding
+    mask, ``valid_weights``); perm (n_valid,), the minibatch order, used
+    when sgd_copies minibatches (drawn from MINIBATCH_SEED when None)."""
     if cfg.solver_impl not in SOLVERS:
         raise ValueError(f"solver_impl must be one of {SOLVERS}, got "
                          f"{cfg.solver_impl!r}")
     classes = lr_masks.dim() == 5
     if not classes:
         lr_masks = lr_masks[None]
+    if copy_weights is None:
+        copy_weights = valid_weights(cfg)
     if copy_weights is not None:
         copy_weights = copy_weights.to(device=lr_masks.device, dtype=torch.float32)
     target = resize(lr_masks[:, 0], cfg.output_size, method="bilinear")
@@ -492,8 +525,6 @@ def _inverse_warp(lr_masks: torch.Tensor, angles, shifts, cfg: SRConfig) -> torc
     (N, K, H, W) stack: the K planes of copy n share its inverse warp, so the
     three kernel launches of one warp serve every class (the gather warp,
     warp_impl "gather", launches none)."""
-    if cfg.n_valid != cfg.num_aug:  # padded copies would need masking out
-        raise NotImplementedError(f"aug-axis padding is not ported yet ({NOT_PORTED_PADDING})")
     up = resize_hw(lr_masks[..., 0], cfg.output_size, "bilinear").transpose(0, 1)
     if cfg.warp_impl != "shear":
         return inverse_rotate_translate_planes(up, angles, shifts)
@@ -501,18 +532,36 @@ def _inverse_warp(lr_masks: torch.Tensor, angles, shifts, cfg: SRConfig) -> torc
     return paeth_planes(up, inv_angles, inv_shifts)
 
 
+def _copies_max(up: torch.Tensor, cfg: SRConfig) -> torch.Tensor:
+    """Max over the copy axis (0) of real copies: a padded copy is -inf."""
+    valid = valid_weights(cfg)
+    if valid is not None:
+        mask = valid.to(up.device).reshape((-1,) + (1,) * (up.dim() - 1)) > 0
+        up = torch.where(mask, up, -torch.inf)
+    return up.amax(dim=0)
+
+
+def _copies_mean(up: torch.Tensor, cfg: SRConfig) -> torch.Tensor:
+    """Mean over the copy axis (0) of real copies: the padded ones weighted
+    0, the sum divided by n_valid."""
+    valid = valid_weights(cfg)
+    if valid is None:
+        return up.mean(dim=0)
+    return _weigh(up, valid.to(up.device)).sum(dim=0) / cfg.n_valid
+
+
 @torch.no_grad()
 def max_superresolution(lr_masks, angles, shifts, cfg: SRConfig):
     """(H, W, 1) pixelwise max over the inverse-warped copies, None."""
     up = _inverse_warp(lr_masks[None], angles, shifts, cfg)
-    return up.amax(dim=0)[0, ..., None], None
+    return _copies_max(up, cfg)[0, ..., None], None
 
 
 @torch.no_grad()
 def mean_superresolution(lr_masks, angles, shifts, cfg: SRConfig):
     """(H, W, 1) pixelwise mean over the inverse-warped copies, None."""
     up = _inverse_warp(lr_masks[None], angles, shifts, cfg)
-    return up.mean(dim=0)[0, ..., None], None
+    return _copies_mean(up, cfg)[0, ..., None], None
 
 
 @torch.no_grad()
@@ -527,7 +576,7 @@ def multiclass_max_mean_superresolution(lr_masks, angles, shifts, cfg: SRConfig)
     """(K, num_aug, h, w, 1) per-class stacks -> ((K, H, W, 1) max SR,
     (K, H, W, 1) mean SR) from one inverse warp of all K classes."""
     up = _inverse_warp(lr_masks, angles, shifts, cfg)
-    return up.amax(dim=0)[..., None], up.mean(dim=0)[..., None]
+    return _copies_max(up, cfg)[..., None], _copies_mean(up, cfg)[..., None]
 
 
 SR_FUNCTIONS = {

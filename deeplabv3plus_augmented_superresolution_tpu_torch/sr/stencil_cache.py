@@ -4,7 +4,10 @@ Port of the JAX package's ``sr/stencil_cache.py``. The stencil is a pure
 function of the TTA set and the operator-shaping SRConfig fields; it is
 keyed by sha256 over the exact angle/shift values, those fields and the tag
 "torch", so the port never loads a stencil the JAX side wrote (the two
-operators agree only to float tolerance).
+operators agree only to float tolerance). The fields include the count of
+real copies (``n_valid``), which the JAX key lacks: a set padded with
+identity copies (weighted 0) and a set whose last copies are real identity
+transforms have the same values and different stencils.
 """
 
 import hashlib
@@ -24,7 +27,7 @@ def stencil_cache_key(angles, shifts, cfg) -> str:
     h.update(np.asarray(angles, np.float64).tobytes())
     h.update(np.asarray(shifts, np.float64).tobytes())
     h.update(repr((tuple(cfg.feature_size), tuple(cfg.output_size),
-                   cfg.angle_max, cfg.num_aug, cfg.operator_impl,
+                   cfg.angle_max, cfg.num_aug, cfg.n_valid, cfg.operator_impl,
                    cfg.warp_impl, cfg.gram_probing, BACKEND_TAG)).encode())
     return h.hexdigest()[:24]
 

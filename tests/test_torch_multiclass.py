@@ -145,7 +145,9 @@ def test_max_mean_sr_match_jax(max_mean_case, kind):
 
 def test_max_mean_of_classes_equal_single_class_runs(max_mean_case):
     """The class planes share the inverse warp: slice k of the multi-class
-    stack is the single-class result bit for bit; padding raises."""
+    stack is the single-class result bit for bit; with the last copy padding
+    (num_valid, its masks junk) max and mean are those of the real copies
+    alone (held against JAX in test_torch_parallel.py)."""
     masks, angles, shifts, _ = max_mean_case
     cfg = SRConfig(**SR)
     ta, ts = _t(angles, shifts)
@@ -153,9 +155,14 @@ def test_max_mean_of_classes_equal_single_class_runs(max_mean_case):
     for k in range(3):
         single = max_mean_superresolution(torch.from_numpy(masks[k]), ta, ts, cfg)
         assert torch.equal(mx[k], single[0]) and torch.equal(mean[k], single[1])
-    with pytest.raises(NotImplementedError, match="padding"):
-        max_superresolution(torch.from_numpy(masks[0]), ta, ts,
-                            dataclasses.replace(cfg, num_valid=3))
+    n = cfg.num_aug
+    junk = torch.from_numpy(masks[0]).clone()
+    junk[n - 1] = 7.0
+    real = dataclasses.replace(cfg, num_aug=n - 1)
+    for fn in (max_superresolution, mean_superresolution):
+        got = fn(junk, ta, ts, dataclasses.replace(cfg, num_valid=n - 1))[0]
+        want = fn(junk[:n - 1], ta[:n - 1], ts[:n - 1], real)[0]
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
 # ---- OPM and label map ------------------------------------------------------

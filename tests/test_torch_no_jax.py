@@ -29,7 +29,8 @@ JAX_PACKAGE = "deeplabv3plus_augmented_superresolution_tpu"
 ARRAY_CORES = [f"{PORT}.{m}" for m in (
     "cli.run_asr", "cli.train", "models.train", "data.synthetic", "pipeline.feature_maps",
     "sr.orchestrate", "cli.generate_augmented_copies", "cli.generate_standard_output",
-    "cli.SR_single_class", "cli.threshold_tests", "cli.check_robustness", "ops.warp")]
+    "cli.SR_single_class", "cli.threshold_tests", "cli.check_robustness", "ops.warp",
+    "parallel", "parallel.mesh", "parallel.sharded")]
 ENTRY_POINTS = ARRAY_CORES + [f"{PORT}.cli.{m}" for m in (
     "test_SR", "sweep_script", "sweep_agent", "validate_parity")]
 FILE_LIBRARIES = ("h5py", "pandas", "tqdm", "yaml", "PIL", "cv2", "matplotlib")

@@ -5,8 +5,9 @@ the PyTorch port (plain shear on CPU tensors). The port's adjoint comes from
 autograd through the shear Function; the reference's from jax.vjp.
 """
 
+import dataclasses
+
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -166,8 +167,9 @@ def test_forward_operator_is_the_fused_path():
     same JAX parity, 2e-5); the staged operator and the gather warp are
     other paths (held against JAX in tests/test_torch_warp.py): the staged
     shear operator stays within the fused one's interior bound of
-    test_fused_operator_at_production_extremes; aug-axis padding raises,
-    naming 'parallel/'."""
+    test_fused_operator_at_production_extremes; with aug-axis padding
+    (num_valid) the operator is the same: every copy is applied, and the
+    data terms weight the padded ones 0."""
     angles, shifts, _, _ = _gram_setup(n=3)
     kw = dict(num_aug=3, feature_size=(16, 16), output_size=(64, 64), angle_max=0.3)
     img = _smooth(64, 5)
@@ -179,6 +181,8 @@ def test_forward_operator_is_the_fused_path():
                               SRConfig(**kw, operator_impl="staged"))
     err = (staged - ours).abs()[:, 2:14, 2:14]
     assert float(err.max()) < 0.06 and float(err.mean()) < 0.01
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    gather = SRConfig(**kw, warp_impl="gather")
+    torch.testing.assert_close(
         forward_operator(*_t(img, angles, shifts), (16, 16),
-                         SRConfig(**kw, warp_impl="gather", num_valid=2))
+                         dataclasses.replace(gather, num_valid=2)),
+        forward_operator(*_t(img, angles, shifts), (16, 16), gather), rtol=0, atol=0)

@@ -612,6 +612,17 @@ def test_cli_checkpoint_resume_equals_uninterrupted(tmp_path):
                                    ["--ckpt_format", "orbax"]],
                          ids=["devices", "multihost", "voc", "orbax"])
 def test_cli_rejects_unported_flags(flags, capsys):
+    """--data voc and --ckpt_format orbax exit naming what they wait for.
+    --devices and --multihost are ported (parallel/, run on two ranks in
+    test_torch_parallel.py): they parse, and --devices with a batch that
+    does not split over its ranks exits with the JAX CLI's message."""
+    if flags[0] in ("--devices", "--multihost"):
+        args = cli_train.parse_args(flags)
+        assert args.devices == 2 or args.multihost
+        with pytest.raises(SystemExit):
+            cli_train.parse_args(["--devices", "3"])
+        assert "--batch 8 must divide the 3-device mesh" in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit):
         cli_train.parse_args(flags)
     err = capsys.readouterr().err

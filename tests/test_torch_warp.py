@@ -237,8 +237,9 @@ def test_gather_copies_match_jax(warp_refs):
 def test_max_mean_through_the_gather_inverse_warp_match_jax(warp_refs):
     """max and mean SR with warp_impl="gather" (upsample, translate(-shifts),
     rotate(-angles)) against JAX's: 2e-5 as the warp; two classes through
-    one inverse warp equal each class alone bit for bit. Aug-axis padding
-    still raises, naming 'parallel/'."""
+    one inverse warp equal each class alone bit for bit. With the last copy
+    padding (num_valid) max and mean are those of the other copies, and the
+    operator applies every copy."""
     _, _, masks, angles, shifts, ref = warp_refs
     _, cfg = _configs(warp_impl="gather")
     tm, ta, ts = _t(masks, angles, shifts)
@@ -253,10 +254,14 @@ def test_max_mean_through_the_gather_inverse_warp_match_jax(warp_refs):
     second = max_superresolution(tm[1], ta, ts, cfg)[0]
     torch.testing.assert_close(both_max[1], second, rtol=0, atol=0)
     padded = dataclasses.replace(cfg, num_valid=N - 1)
-    for call in (lambda: max_superresolution(tm[0], ta, ts, padded),
-                 lambda: forward_operator(tm[0, 0, ..., 0][None], ta, ts, FEATURE, padded)):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            call()
+    real = dataclasses.replace(cfg, num_aug=N - 1)
+    for fn in (max_superresolution, mean_superresolution):
+        torch.testing.assert_close(fn(tm[0], ta, ts, padded)[0],
+                                   fn(tm[0, :N - 1], ta[:N - 1], ts[:N - 1], real)[0],
+                                   rtol=0, atol=1e-6)
+    plane = torch.rand((1, H, H))
+    torch.testing.assert_close(forward_operator(plane, ta, ts, FEATURE, padded),
+                               forward_operator(plane, ta, ts, FEATURE, cfg), rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
