@@ -52,7 +52,15 @@ order, each phase raising on failure:
      window over three more steps (device time a step, the idle share, the
      kernels that take it). Then ``train-then-serve``: the warp run's
      checkpoint resumes for one step, and its saved params serve one image
-     through ``cli.run_asr.serve`` (``--weights_path``);
+     through ``cli.run_asr.serve`` (``--weights_path``). Then
+     ``[train-voc]``: ``--data voc --augment --warp_augment`` at 512 px for
+     three chunks, on a VOC-shaped root whose dataset is handed its
+     synthetic scenes decoded (half at 512 px, half at 375 x 500; the card's
+     machine cannot decode JPEG, so file decoding is outside the phase):
+     shuffled epochs, the host's random_transform and resize, the prefetch
+     thread, the warp (4 + 2 launches a step, asserted) and the step, with
+     the share of the steady window the loop waited on the prefetch queue,
+     and the host pipeline's seconds a batch alone;
   6. the evaluation workflow at full width (Xception OS16, bf16, 512 px,
      100 copies, 300 AMSGrad steps, random weights from seed 0) on
      synthetic scenes holding class 8, each path with its launches (counted
@@ -74,7 +82,8 @@ order, each phase raising on failure:
      ``serve-sharded-data2-aug2`` (a (2, 2) mesh), each rank's launches per
      step asserted equal to one card's, the masks' IoU against the
      one-process path, its peak; ``train-sharded`` (2 ranks, cli.train's
-     ``train`` at 128 px in f32) against the one-process run; a world-1 NCCL
+     ``train`` at 128 px in f32) and ``train-voc-sharded`` (the same with
+     ``--data voc --augment``) against the one-process runs; a world-1 NCCL
      group's ``make_asr_batch_fn`` step bit for bit against the one-process
      step; with two cards, ``serve-sharded-aug2-nccl``;
   7. each kernel vs its plain version at the serving paths' shapes and
@@ -244,6 +253,32 @@ SHARDED_MIN_IOU = 0.98
 SHARDED_TRAIN_RANKS = 2
 SHARDED_TRAIN_STEPS = 3
 SHARDED_TRAIN_DTYPE = "float32"
+# The sharded training runs' start: every BN's gamma from U(0.25, 0.5) as in
+# `[train-small]`, and beta from +-U(2, 4), so that a ReLU input sits at 0
+# only 4 to 16 batch standard deviations from its channel's mean. The
+# ranks' statistics and convolutions round otherwise than the one-process
+# run's, so a ReLU input within rounding of 0 can take the other side, and
+# one such flip moves a leaf's whole gradient through its BatchNorm's
+# backward. With `[train-small]`'s +-U(1, 2), the VOC run's augmented
+# scenes left such an input in decoder_conv0's pointwise BN output, and
+# the ranks' trace in decoder_conv0_pointwise.kernel read 0.66 of its bound
+# in one run on the card and 1.17 in the next. So each one-process run is
+# made twice and held against itself first, with the same bounds: a check
+# whose reference does not reproduce itself stops there (`--sharded-beta`
+# sets the range for such a probe).
+SHARDED_BETA_RANGE = (2.0, 4.0)
+# The [train-voc] phase (cli.train --data voc at full width): its synthetic
+# scenes, handed over decoded (the card's machine has no JPEG decoder),
+# every other one at VOC's common 375 x 500 so that the dataset's resize to
+# 512 runs too; 3 chunks of TRAIN_CHUNK steps; and the batches of the host
+# pipeline timed alone after the run. The [sharded] phase's VOC run: its
+# scenes at 128 px (every other one at 96 x 128), an epoch of 2 batches.
+VOC_SCENES = 32
+VOC_OFF_SIZE = (375, 500)
+VOC_STEPS = 3 * TRAIN_CHUNK
+VOC_HOST_BATCHES = 4
+SHARDED_VOC_SCENES = 16
+SHARDED_VOC_OFF_SIZE = (96, 128)
 # Length of the spin kernel ahead of each timing window (about 2 ms at the
 # card's clock): long enough for the host to enqueue the window behind it.
 SPIN_CYCLES = 4_000_000
@@ -1408,6 +1443,115 @@ def phase_train(device, images, coeffs, sr_cfg):
     return paths
 
 
+VOC_DIR = "build/chip_smoke_voc"
+
+
+def voc_scenes(seed: int, n: int, size, off_size):
+    """name -> (image (H, W, 3) uint8, labels (H, W) uint8 with 255
+    contours): synthetic scenes at size, every other one at off_size."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.data.synthetic import (
+        synthetic_scene)
+
+    rng = np.random.default_rng(seed)
+    scenes = {}
+    for i in range(n):
+        img, lab = synthetic_scene(rng, size if i % 2 == 0 else off_size)
+        scenes[f"voc{i:04d}"] = ((img * 255).astype(np.uint8), lab.astype(np.uint8))
+    return scenes
+
+
+def write_voc_root(root: str, names) -> None:
+    """A VOC-shaped root holding the split list ImageSets/Segmentation/train.txt."""
+    import os
+
+    os.makedirs(os.path.join(root, "ImageSets", "Segmentation"), exist_ok=True)
+    with open(os.path.join(root, "ImageSets", "Segmentation", "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+def voc_dataset(root: str, scenes, size: int):
+    """The VOC dataset over root at size px whose decode hands over the
+    scenes' arrays: everything after the file decode (the resize, /255,
+    shuffle, random_transform, prefetch) runs as a user runs it."""
+    from deeplabv3plus_augmented_superresolution_tpu_torch.data.dataset import (
+        PascalVOC2012Dataset)
+
+    return PascalVOC2012Dataset(root, image_size=(size, size), decode=scenes.__getitem__)
+
+
+def phase_train_voc(device):
+    """cli.train --data voc at full width (Xception OS16, bf16, adam 1e-3,
+    batch 8, 512 px, --augment --warp_augment) for VOC_STEPS steps, on
+    VOC_SCENES scenes handed over decoded: the shuffled epochs, the host's
+    random_transform (flip, rotate with expand, zoom, brightness) and
+    resize, the prefetch thread, the warp on the card and the step run as a
+    user runs them. Launches counted from 0 around the run (4 + 2 a step,
+    asserted); steady s/step between the first and the last log point; the
+    share of that window the loop waited on the prefetch queue; then the
+    host pipeline alone (VOC_HOST_BATCHES batches, no training)."""
+    import contextlib
+    import shutil
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import train
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        WARP_LAUNCHES)
+
+    shutil.rmtree(VOC_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    scenes = voc_scenes(11, VOC_SCENES, (512, 512), VOC_OFF_SIZE)
+    write_voc_root(VOC_DIR, scenes)
+    dataset = voc_dataset(VOC_DIR, scenes, 512)
+    log(f"[train-voc] {VOC_SCENES} scenes drawn in {time.perf_counter() - t0:.2f}s "
+        f"({VOC_SCENES // 2} at 512 x 512, {VOC_SCENES // 2} at "
+        f"{VOC_OFF_SIZE[0]} x {VOC_OFF_SIZE[1]}), handed to the dataset decoded: file "
+        "decoding is outside this phase (the card's machine has no JPEG decoder)")
+    args = train_args(512, VOC_STEPS, "--data", "voc", "--pascal_root", VOC_DIR,
+                      "--split", "train", "--augment", "--warp_augment")
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    for counter in counters.values():
+        counter.launches = 0
+    summary, timing = train(args, dataset=dataset)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    (first_done, first_t), (last_done, last_t) = timing["chunk_ends"][0], \
+        timing["chunk_ends"][-1]
+    (_, first_wait), (_, last_wait) = timing["prefetch_wait"][0], timing["prefetch_wait"][-1]
+    per_step = (last_t - first_t) / (last_done - first_done)
+    wait_share = (last_wait - first_wait) / (last_t - first_t)
+    losses = summary["losses"]
+    steps = summary["total_steps"] - summary["start_step"]
+    expected = {name: 2 * WARP_LAUNCHES[name] for name in counters}
+    t0 = time.perf_counter()
+    with contextlib.closing(dataset.batches("train", TRAIN_BATCH, shuffle=True, seed=0,
+                                            augment=True)) as batches:
+        for _ in range(VOC_HOST_BATCHES):
+            next(batches)
+    host_s = (time.perf_counter() - t0) / VOC_HOST_BATCHES
+    log(f"[train-voc] {args.backbone} {args.size} px, batch {args.batch}, "
+        f"{args.compute_dtype}, --augment --warp_augment: {steps} steps, first step "
+        f"{timing['first_step_s']:.3f}s, steady {per_step:.4f} s/step "
+        f"({args.batch / per_step:.1f} images/s) over steps {first_done + 1}-{last_done}, "
+        f"waiting on the prefetch queue {wait_share:.1%} of that window "
+        f"({last_wait:.2f}s of {last_t:.2f}s over the whole run); the host pipeline "
+        f"alone {host_s:.4f} s/batch; peak memory {peak / 2**30:.2f} GiB; losses {losses}")
+    log(f"[train-voc] kernel launches {json.dumps(launches)} over {steps} steps, "
+        f"expected per step {json.dumps(expected)}")
+    if len(losses) != steps // TRAIN_CHUNK or not all(np.isfinite(losses)):
+        raise AssertionError(f"[train-voc] losses not finite: {losses}")
+    for name, count in launches.items():
+        if count != expected[name] * steps:
+            raise AssertionError(f"[train-voc] {count} {name} launches, expected "
+                                 f"{expected[name] * steps}")
+    return {"launches": launches, "steps": steps, "launches_per_step": expected,
+            "peak_bytes": peak, "first_step_s": timing["first_step_s"],
+            "steady_s_per_step": per_step, "images_per_s": args.batch / per_step,
+            "prefetch_wait_share": wait_share, "prefetch_wait_s": last_wait,
+            "loop_s": last_t, "host_s_per_batch": host_s, "losses": losses}
+
+
 def phase_train_small(device):
     """One train step of MobileNetV2 (alpha 0.35, 32 px, f32, sgd with
     Nesterov momentum, the non-finite guard on) and warp_augment_batch with
@@ -1942,32 +2086,45 @@ def _sharded_serve(rank, run, mesh, model, device, images, sr_cfg, class_id):
                                for k, v in summary["loop_stages"].items()}}
 
 
-def sharded_train_args(ckpt_dir: str):
+SHARDED_VOC_DIR = SHARDED_DIR + "/voc"
+# The sharded training runs: the synthetic data, and --data voc with
+# --augment (a loss at every step) on the SHARDED_VOC_SCENES scenes.
+SHARDED_TRAIN_RUNS = ("train-sharded", "train-voc-sharded")
+
+
+def sharded_train(label: str, ckpt_dir: str, mesh=None):
     """cli.train's `train` configuration (Xception OS16, 128 px, batch 8) for
-    the sharded check: sgd at TRAIN_CHECK_LR for SHARDED_TRAIN_STEPS steps from
-    the conditioned start, a checkpoint at the end."""
-    import os
-
-    return train_args(128, SHARDED_TRAIN_STEPS, "--optimizer", "sgd", "--lr",
-                      str(TRAIN_CHECK_LR), "--resume", os.path.join(SHARDED_DIR, "start.npz"),
-                      "--compute_dtype", SHARDED_TRAIN_DTYPE, "--ckpt_dir", ckpt_dir,
-                      "--ckpt_every", str(SHARDED_TRAIN_STEPS), "--eval_images", "1")
-
-
-def _sharded_train(rank, mesh, device):
-    """One rank of the sharded training run: cli.train's ``train`` with the
-    mesh, launches counted from 0 around it."""
+    the sharded check ``label``: sgd at TRAIN_CHECK_LR for SHARDED_TRAIN_STEPS
+    steps from the conditioned start (SHARDED_BETA_RANGE), a checkpoint at
+    the end; on one process, or as this rank of ``mesh``."""
     import os
 
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import train
+
+    extra, dataset = (), None
+    if label == "train-voc-sharded":
+        extra = ("--data", "voc", "--pascal_root", SHARDED_VOC_DIR, "--split", "train",
+                 "--augment", "--log_every", "1")
+        dataset = voc_dataset(SHARDED_VOC_DIR, voc_scenes(
+            13, SHARDED_VOC_SCENES, (128, 128), SHARDED_VOC_OFF_SIZE), 128)
+    args = train_args(128, SHARDED_TRAIN_STEPS, "--optimizer", "sgd", "--lr",
+                      str(TRAIN_CHECK_LR), "--resume", os.path.join(SHARDED_DIR, "start.npz"),
+                      "--compute_dtype", SHARDED_TRAIN_DTYPE, "--ckpt_dir", ckpt_dir,
+                      "--ckpt_every", str(SHARDED_TRAIN_STEPS), "--eval_images", "1", *extra)
+    return train(args, mesh, dataset=dataset)
+
+
+def _sharded_train(rank, label, mesh, device):
+    """One rank of the sharded training run ``label``: cli.train's ``train``
+    with the mesh, launches counted from 0 around it."""
+    import os
 
     counters = launch_counters()
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     for counter in counters.values():
         counter.launches = 0
-    summary, timing = train(sharded_train_args(os.path.join(SHARDED_DIR, "ckpt-sharded")),
-                            mesh)
+    summary, timing = sharded_train(label, os.path.join(SHARDED_DIR, f"{label}-ranks"), mesh)
     return {"rank": rank, "losses": summary["losses"], "devices": summary["devices"],
             "launches": {name: counter.launches for name, counter in counters.items()},
             "peak_bytes": torch.cuda.max_memory_allocated(device),
@@ -2009,7 +2166,7 @@ def _sharded_worker(rank: int, spec: dict) -> None:
             result = _sharded_serve(rank, run, mesh, models[device], device, images,
                                     sr_cfg, spec["class_id"])
         else:
-            result = _sharded_train(rank, mesh, device)
+            result = _sharded_train(rank, run["label"], mesh, device)
         dist.destroy_process_group()
         with open(os.path.join(SHARDED_DIR, f"{run['label']}.rank{rank}.json"), "w") as f:
             json.dump(result, f)
@@ -2077,8 +2234,12 @@ def phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, seed
         rank, an image a data group, 2 batches;
       * ``train-sharded``: 2 ranks, ``cli.train``'s ``train`` at 128 px,
         global batch 8 (4 a rank), SHARDED_TRAIN_STEPS sgd steps from the
-        conditioned start, held against the one-process run on the same
-        draws (``_check_train_state``).
+        conditioned start (SHARDED_BETA_RANGE), held against the one-process
+        run on the same draws (``_check_train_state``), which is first made
+        twice and held against itself with the same bounds;
+      * ``train-voc-sharded``: the same with ``--data voc --augment`` on
+        SHARDED_VOC_SCENES scenes handed over decoded (an epoch of 2
+        batches, so the third step restarts the epoch), a loss every step.
 
     Each serving run's masks of its first batch against the one-process
     --batch 2 path's (IoU >= SHARDED_MIN_IOU each), its targets finite, each
@@ -2094,7 +2255,6 @@ def phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, seed
     import torch.multiprocessing as mp
 
     from deeplabv3plus_augmented_superresolution_tpu_torch.cli.run_asr import build_deeplab
-    from deeplabv3plus_augmented_superresolution_tpu_torch.cli.train import train
     from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
         DeepLabConfig, init_params, save_params_npz)
     from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import apply_gram
@@ -2114,8 +2274,9 @@ def phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, seed
     images = images[:SHARDED_IMAGES]
     runs = [{"label": label, "kind": "serve", "ranks": ranks, "mesh": shape,
              "backend": "gloo"} for label, ranks, shape in SHARDED_SERVE_RUNS]
-    runs.append({"label": "train-sharded", "kind": "train", "ranks": SHARDED_TRAIN_RANKS,
-                 "mesh": (1, SHARDED_TRAIN_RANKS), "backend": "gloo"})
+    runs += [{"label": label, "kind": "train", "ranks": SHARDED_TRAIN_RANKS,
+              "mesh": (1, SHARDED_TRAIN_RANKS), "backend": "gloo"}
+             for label in SHARDED_TRAIN_RUNS]
     cards = torch.cuda.device_count()
     if cards >= 2:
         runs.append({"label": "serve-sharded-aug2-nccl", "kind": "serve", "ranks": 2,
@@ -2171,9 +2332,20 @@ def phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, seed
             n = entry["gamma"].shape
             entry["gamma"] = rng.uniform(0.25, 0.5, n).astype(np.float32)
             entry["beta"] = (rng.choice([-1.0, 1.0], n)
-                             * rng.uniform(1.0, 2.0, n)).astype(np.float32)
+                             * rng.uniform(*SHARDED_BETA_RANGE, n)).astype(np.float32)
     save_params_npz(start, os.path.join(SHARDED_DIR, "start.npz"))
-    one, _ = train(sharded_train_args(os.path.join(SHARDED_DIR, "ckpt-one")))
+    write_voc_root(SHARDED_VOC_DIR, [f"voc{i:04d}" for i in range(SHARDED_VOC_SCENES)])
+    one = {label: sharded_train(label, os.path.join(SHARDED_DIR, f"{label}-one"))[0]
+           for label in SHARDED_TRAIN_RUNS}
+    # The reference reproduces itself: a second one-process run of each,
+    # within the bounds the ranks are held to.
+    last = f"step_{SHARDED_TRAIN_STEPS}.npz"
+    again = {}
+    for label in SHARDED_TRAIN_RUNS:
+        sharded_train(label, os.path.join(SHARDED_DIR, f"{label}-again"))
+        again[label] = _check_train_state(
+            f"{label}-again", os.path.join(SHARDED_DIR, f"{label}-one", last),
+            os.path.join(SHARDED_DIR, f"{label}-again", last))
 
     # The world-1 NCCL group: the production backend's gather and broadcast.
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
@@ -2212,21 +2384,24 @@ def phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, seed
         launches = {name: sum(r["launches"][name] for r in ranks) for name in KERNELS}
         if run["kind"] == "train":
             losses = [r["losses"] for r in ranks]
+            want = one[label]["losses"]
             log(f"[{label}] {run['ranks']} ranks, global batch {TRAIN_BATCH}, "
                 f"{SHARDED_TRAIN_DTYPE}: losses {losses[0]} against the one-process run's "
-                f"{one['losses']}; devices {ranks[0]['devices']}; launches "
+                f"{want}; devices {ranks[0]['devices']}; launches "
                 f"{json.dumps(launches)}; peak per rank "
                 + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in ranks) + " GiB")
-            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[0], one["losses"]))
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[0], want))
             if any(l != losses[0] for l in losses) or not loss_err <= 1e-5 \
+                    or len(want) != SHARDED_TRAIN_STEPS or len(losses[0]) != len(want) \
                     or ranks[0]["devices"] != run["ranks"] or any(launches.values()):
-                raise AssertionError(f"[{label}] losses {losses} vs {one['losses']} "
+                raise AssertionError(f"[{label}] losses {losses} vs {want} "
                                      f"(rel {loss_err:.3g}, bound 1e-5)")
             shares = _check_train_state(
-                label, os.path.join(SHARDED_DIR, "ckpt-one", f"step_{SHARDED_TRAIN_STEPS}.npz"),
-                os.path.join(SHARDED_DIR, "ckpt-sharded", f"step_{SHARDED_TRAIN_STEPS}.npz"))
+                label, os.path.join(SHARDED_DIR, f"{label}-one", last),
+                os.path.join(SHARDED_DIR, f"{label}-ranks", last))
             paths[label] = {"launches": launches, "loss_rel_err": loss_err,
                             "bound_shares": shares,
+                            "one_process_again_bound_shares": again[label],
                             "peak_bytes": max(r["peak_bytes"] for r in ranks)}
             continue
         ious = {}
@@ -2295,11 +2470,19 @@ def main() -> None:
     parser.add_argument("--sharded-only", action="store_true",
                         help="run only the [sharded] phase (after the build and the "
                              "stencil): prints no result line")
+    parser.add_argument("--sharded-beta", type=float, nargs=2, metavar=("LO", "HI"),
+                        default=SHARDED_BETA_RANGE,
+                        help="with --sharded-only: the sharded training runs' start "
+                             "draws every BN's beta from +-U(LO, HI)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel phase (for tuning): prints no "
                              "result line")
     args = parser.parse_args()
 
+    if tuple(args.sharded_beta) != SHARDED_BETA_RANGE:
+        if not args.sharded_only:
+            parser.error("--sharded-beta needs --sharded-only")
+        globals()["SHARDED_BETA_RANGE"] = tuple(args.sharded_beta)
     if args.package_root:
         if not args.kernels_only:
             parser.error("--package-root needs --kernels-only")
@@ -2356,6 +2539,7 @@ def main() -> None:
     paths["serve-mobilenet"] = phase_serve_mobilenet(
         device, images[:MOBILENET_IMAGES], mob_coeffs, mob_sr_cfg)
     paths.update(phase_train(device, images, coeffs, sr_cfg))
+    paths["train-voc"] = phase_train_voc(device)
     # The evaluation workflow: staging, standard masks, SR evaluation with
     # the threshold study, the robustness grid.
     names, eval_images, eval_labels = eval_scenes(args.seed, ROBUST_IMAGES)

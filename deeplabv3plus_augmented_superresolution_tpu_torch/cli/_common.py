@@ -17,8 +17,6 @@ from ..sr import OptimizerConfig, SRConfig
 SEED = 1234
 IMG_SIZE = (512, 512)
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1: {!r})"
-
 
 def data_paths(use_validation: bool = False, backbone: str = "xception",
                mode: str = "argmax", class_id: int = 8, num_aug: int = 100):

@@ -9,6 +9,16 @@ with the same flags and defaults:
     (``--seed``, the chunk's first step), so a resumed run sees the data the
     uninterrupted run saw. The losses are fetched once per chunk, not per
     step (the reference's ``lax.scan`` chunk);
+  * or ``--data voc``: a prepared VOC tree (``--pascal_root``, the split's
+    list at ``ImageSets/Segmentation/<--split>.txt``) through
+    ``data.dataset.PascalVOC2012Dataset``: each epoch restarts its batches
+    shuffled with ``--seed`` + the steps done, ``--augment`` runs
+    ``host_augment.random_transform`` on the host, a thread prefetches the
+    batches, each moves to the card as it is taken, and with
+    ``--warp_augment`` its warp draws come from the generator seeded with
+    (``--seed``, the step). The loss is fetched at each ``--log_every``
+    step, as the reference records it; no held-out evaluation (run
+    ``cli.validate_parity`` on the checkpoint);
   * ``--warp_augment``: every batch through ``warp_augment_batch``, i.e.
     the shear kernels (two warps of three launches a step);
   * the train step (bf16 or f32 forward, batch-statistics BatchNorm with the
@@ -39,11 +49,12 @@ synchronised BatchNorm and one all-reduce of the gradient, so a run on N
 ranks takes the one-card run's steps on the same data. Rank 0 alone
 evaluates and writes checkpoints, ``--save_params`` and ``--out``.
 
-Runs on the card unless ``--device cpu``. ``--data voc`` and
-``--ckpt_format orbax`` exit naming what they wait for.
+Runs on the card unless ``--device cpu``. ``--ckpt_format orbax`` exits
+naming why it is not ported.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import tempfile
@@ -54,6 +65,7 @@ import numpy as np
 import torch
 import torch.distributed
 
+from ..data.dataset import PascalVOC2012Dataset
 from ..data.synthetic import synthetic_batch
 from ..metrics import mean_iou
 from ..models import (DeepLabConfig, init_params, params_from_jax, resolve_params,
@@ -66,7 +78,7 @@ from ..parallel.mesh import (Mesh, default_backend, free_port, initialize_distri
 from ..parallel.sharded import make_sharded_train_step, shard_train_batch
 from ..pipeline.augment import sample_warp_draws, warp_augment_batch_with_draws
 from ..utils.checkpoint import load_train_state, restore_opt_state, save_train_state
-from ._common import NOT_PORTED, SEED
+from ._common import SEED
 
 ORBAX_NOT_PORTED = ("is not ported (ROADMAP ground rules: orbax checkpoints stay "
                     "on the JAX side; use the npz train state)")
@@ -76,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", default="synthetic", choices=["synthetic", "voc"])
     ap.add_argument("--pascal_root", default="",
-                    help="prepared VOC tree (--data voc; not ported yet)")
+                    help="prepared VOC tree (cli/download_and_prepare_voc.py)")
     ap.add_argument("--split", default="trainaug",
                     help="VOC split file (trainaug/valaug)")
     ap.add_argument("--augment", action="store_true",
@@ -165,9 +177,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.devices > 1 and args.batch % args.devices:
         ap.error(batch_split_error(args.batch, args.devices))
+    if args.data == "voc" and not args.pascal_root:
+        ap.error("--data voc requires --pascal_root")
     checks = [
-        (args.data == "voc", "--data voc",
-         NOT_PORTED.format("the remaining CLIs and host side")),
         (args.ckpt_format == "orbax", "--ckpt_format orbax", ORBAX_NOT_PORTED),
         (bool(args.resume) and os.path.isdir(args.resume),
          "--resume from a checkpoint directory", ORBAX_NOT_PORTED),
@@ -208,20 +220,27 @@ def chunk_seed(seed: int, step: int) -> int:
     return (int(seed) << 32) + int(step)
 
 
-def train(args: argparse.Namespace, mesh: Optional[Mesh] = None) -> Tuple[Dict, Dict]:
+def train(args: argparse.Namespace, mesh: Optional[Mesh] = None,
+          dataset: Optional[PascalVOC2012Dataset] = None) -> Tuple[Dict, Dict]:
     """Run the training of ``args`` (from ``parse_args``). Returns (summary,
     timing): the summary has the reference's keys (``train_s`` from the
     data's generation to the final evaluation, as there); timing holds the
     host clock (s since the loop started) at the end of the first step
     (``first_step_s``, one synchronisation) and at each chunk's end
     (``chunk_ends``: (steps done, seconds), each after the chunk's losses
-    were fetched).
+    were fetched; with --data voc each --log_every step), and with --data
+    voc ``prefetch_wait``: (steps done, seconds the loop had waited on the
+    prefetch queue so far) at the same points.
 
     mesh: data parallel over its ranks (every rank calls train together,
     ``args.device`` its own device): each step's global batch of
     ``args.batch`` is drawn on every rank and each trains on its slice;
     the losses are the global batch's. Only rank 0 evaluates (the others'
-    held-out mIoU is None) and writes checkpoints and ``--save_params``."""
+    held-out mIoU is None) and writes checkpoints and ``--save_params``.
+
+    dataset: with --data voc, the dataset to train on (e.g. one whose
+    ``decode`` hands over arrays); by default one over ``args.pascal_root``
+    at ``args.size``."""
     device = torch.device(args.device)
     lead = mesh is None or mesh.rank == 0
     cfg = DeepLabConfig(
@@ -261,19 +280,30 @@ def train(args: argparse.Namespace, mesh: Optional[Mesh] = None) -> Tuple[Dict, 
                                skip_nonfinite=args.skip_nonfinite)
 
     t0 = time.time()   # train_s counts from the data's generation, as the reference's
-    rng = np.random.default_rng(args.seed)
     size = (args.size, args.size)
-    imgs, labs = synthetic_batch(rng, args.train_set, size=size,
-                                 class_ids=tuple(args.class_ids), hard=args.hard)
-    eval_imgs, eval_labs = synthetic_batch(rng, args.eval_images, size=size,
-                                           class_ids=tuple(args.class_ids),
-                                           hard=args.hard)
-    evaluate = synthetic_eval_fn(args, cfg, eval_imgs, eval_labs, device) if lead else None
-    ds_img = torch.as_tensor((imgs * 255).astype(np.uint8), device=device)
-    ds_lab = torch.as_tensor(labs.astype(np.uint8), device=device)
     shift_max = (args.warp_shift_max if args.warp_shift_max >= 0
                  else 80.0 * args.size / 512.0)
     gen = torch.Generator(device=device)
+
+    def warp_draws(shape):
+        return (sample_warp_draws(gen, shape, args.warp_angle_max, shift_max, device=device)
+                if args.warp_augment else ())
+
+    def train_step(im, lb, draws):
+        """One step on this rank's slice of the global batch (im (B, H, W, 3)
+        float in [0, 1] or uint8, lb (B, H, W), the warp draws of B)."""
+        nonlocal master, opt_state
+        if mesh is not None:
+            im, lb = shard_train_batch(mesh, im, lb)
+            draws = [shard_train_batch(mesh, d, d)[0] for d in draws]
+        im = im.to(device, non_blocking=True)
+        lb = lb.to(device, non_blocking=True)
+        if im.dtype == torch.uint8:
+            im = im.float() / 255.0
+        if args.warp_augment:
+            im, lb = warp_augment_batch_with_draws(im, lb, *draws)
+        master, opt_state, loss = step(master, opt_state, im, lb)
+        return loss
 
     def maybe_checkpoint(done: int) -> None:
         if not (lead and args.ckpt_dir and done % args.ckpt_every == 0):
@@ -286,41 +316,83 @@ def train(args: argparse.Namespace, mesh: Optional[Mesh] = None) -> Tuple[Dict, 
     evals: Dict[int, float] = {}
     timing: Dict = {"first_step_s": None, "chunk_ends": []}
     total_steps = start_step + args.steps
-    t_loop = time.time()
     done = start_step
-    while done < total_steps:
-        n = min(args.log_every, total_steps - done)
-        gen.manual_seed(chunk_seed(args.seed, done))
-        idx = torch.randint(0, ds_img.shape[0], (n, args.batch), generator=gen,
-                            device=device)
-        if args.warp_augment:
-            draws = sample_warp_draws(gen, (n, args.batch), args.warp_angle_max,
-                                      shift_max, device=device)
-        chunk = []
-        for i in range(n):
-            im, lb = ds_img[idx[i]], ds_lab[idx[i]]
-            draw = [d[i] for d in draws] if args.warp_augment else []
-            if mesh is not None:   # this rank's slice of the global batch
-                im, lb = shard_train_batch(mesh, im, lb)
-                draw = [shard_train_batch(mesh, d, d)[0] for d in draw]
-            im = im.float() / 255.0
-            if args.warp_augment:
-                im, lb = warp_augment_batch_with_draws(im, lb, *draw)
-            master, opt_state, loss = step(master, opt_state, im, lb)
-            chunk.append(loss)
-            if timing["first_step_s"] is None:
-                loss.item()
-                timing["first_step_s"] = time.time() - t_loop
-        losses.extend(torch.stack(chunk).tolist())  # the chunk's one fetch
-        done += n
-        timing["chunk_ends"].append((done, time.time() - t_loop))
-        if lead:
-            print(f"[train] step {done}/{total_steps} loss {losses[-1]:.4f}", flush=True)
-        maybe_checkpoint(done)
-        if lead and args.eval_every and done % args.eval_every == 0:
-            evals[done] = evaluate(master)
-            print(f"[train] step {done} held-out mIoU {evals[done]:.4f}")
-    final_miou = evaluate(master) if lead else None
+
+    def first_step(loss, t_loop):
+        if timing["first_step_s"] is None:
+            loss.item()
+            timing["first_step_s"] = time.time() - t_loop
+
+    if args.data == "voc":
+        ds = dataset or PascalVOC2012Dataset(args.pascal_root, image_size=size)
+        timing["prefetch_wait"] = []
+        waited = 0.0
+        t_loop = time.time()
+        while done < total_steps:
+            taken = 0
+            with contextlib.closing(ds.batches(args.split, args.batch, shuffle=True,
+                                               seed=args.seed + done,
+                                               augment=args.augment)) as epoch:
+                while done < total_steps:
+                    t_wait = time.perf_counter()
+                    batch = next(epoch, None)
+                    waited += time.perf_counter() - t_wait
+                    if batch is None:
+                        break
+                    taken += 1
+                    im, mk = batch
+                    gen.manual_seed(chunk_seed(args.seed, done))
+                    loss = train_step(torch.from_numpy(im),
+                                      torch.from_numpy(mk[..., 0].astype(np.uint8)),
+                                      warp_draws((args.batch,)))
+                    done += 1
+                    first_step(loss, t_loop)
+                    if done % args.log_every == 0:
+                        losses.append(loss.item())   # the log point's one fetch
+                        timing["chunk_ends"].append((done, time.time() - t_loop))
+                        timing["prefetch_wait"].append((done, waited))
+                        if lead:
+                            print(f"[train] step {done}/{total_steps} "
+                                  f"loss {losses[-1]:.4f}", flush=True)
+                    maybe_checkpoint(done)
+            if not taken:
+                raise SystemExit(f"--data voc: split {args.split!r} holds fewer than "
+                                 f"--batch {args.batch} images, so an epoch has no batch")
+        final_miou = None   # VOC evaluation: cli.validate_parity on the checkpoint
+    else:
+        rng = np.random.default_rng(args.seed)
+        imgs, labs = synthetic_batch(rng, args.train_set, size=size,
+                                     class_ids=tuple(args.class_ids), hard=args.hard)
+        eval_imgs, eval_labs = synthetic_batch(rng, args.eval_images, size=size,
+                                               class_ids=tuple(args.class_ids),
+                                               hard=args.hard)
+        evaluate = (synthetic_eval_fn(args, cfg, eval_imgs, eval_labs, device)
+                    if lead else None)
+        ds_img = torch.as_tensor((imgs * 255).astype(np.uint8), device=device)
+        ds_lab = torch.as_tensor(labs.astype(np.uint8), device=device)
+        t_loop = time.time()
+        while done < total_steps:
+            n = min(args.log_every, total_steps - done)
+            gen.manual_seed(chunk_seed(args.seed, done))
+            idx = torch.randint(0, ds_img.shape[0], (n, args.batch), generator=gen,
+                                device=device)
+            draws = warp_draws((n, args.batch))
+            chunk = []
+            for i in range(n):
+                chunk.append(train_step(ds_img[idx[i]], ds_lab[idx[i]],
+                                        [d[i] for d in draws]))
+                first_step(chunk[-1], t_loop)
+            losses.extend(torch.stack(chunk).tolist())  # the chunk's one fetch
+            done += n
+            timing["chunk_ends"].append((done, time.time() - t_loop))
+            if lead:
+                print(f"[train] step {done}/{total_steps} loss {losses[-1]:.4f}",
+                      flush=True)
+            maybe_checkpoint(done)
+            if lead and args.eval_every and done % args.eval_every == 0:
+                evals[done] = evaluate(master)
+                print(f"[train] step {done} held-out mIoU {evals[done]:.4f}")
+        final_miou = evaluate(master) if lead else None
     train_s = time.time() - t0
 
     if lead and args.save_params:

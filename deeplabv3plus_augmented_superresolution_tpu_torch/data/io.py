@@ -18,23 +18,26 @@ from ..ops.opm import prepare_sr_inputs
 from ..ops.resize import resize
 
 
-def load_image(img_path: str, image_size: Optional[Tuple[int, int]] = None,
-               normalize: bool = True, is_png: bool = False,
-               resize_method: str = "bilinear") -> np.ndarray:
-    """Decode a jpg as (H, W, 3) or a label png as (H, W, 1) float32, with an
-    optional TF-semantics resize (on the CPU) and optional /255."""
+def decode_image(img_path: str, is_png: bool = False) -> np.ndarray:
+    """Decode a jpg as (H, W, 3) or a label png as (H, W, 1) float32 (PIL;
+    a label png as tf.io.decode_png(channels=1) reads it)."""
     from PIL import Image
 
     img = Image.open(img_path)
     if not is_png:
-        arr = np.asarray(img.convert("RGB"), dtype=np.float32)
-    else:
-        # single-channel label PNGs (VOC GT); match tf.io.decode_png(channels=1)
-        if img.mode not in ("L", "P", "I", "I;16"):
-            img = img.convert("L")
-        raw = np.asarray(img)
-        arr = (raw.astype(np.float32)[..., None] if raw.ndim == 2
-               else raw.astype(np.float32)[..., :1])
+        return np.asarray(img.convert("RGB"), dtype=np.float32)
+    # single-channel label PNGs (VOC GT); match tf.io.decode_png(channels=1)
+    if img.mode not in ("L", "P", "I", "I;16"):
+        img = img.convert("L")
+    raw = np.asarray(img)
+    return raw.astype(np.float32)[..., None] if raw.ndim == 2 else raw.astype(np.float32)[..., :1]
+
+
+def prepare_image(arr: np.ndarray, image_size: Optional[Tuple[int, int]] = None,
+                  normalize: bool = True, resize_method: str = "bilinear") -> np.ndarray:
+    """What ``load_image`` does after the decode: float32, an optional
+    TF-semantics resize (on the CPU) and an optional /255."""
+    arr = np.asarray(arr, dtype=np.float32)
     if image_size is not None and tuple(arr.shape[:2]) != tuple(image_size):
         arr = resize(torch.from_numpy(np.ascontiguousarray(arr)), image_size,
                      method=resize_method).numpy()
@@ -42,6 +45,15 @@ def load_image(img_path: str, image_size: Optional[Tuple[int, int]] = None,
     if normalize:
         arr = arr / 255.0
     return arr
+
+
+def load_image(img_path: str, image_size: Optional[Tuple[int, int]] = None,
+               normalize: bool = True, is_png: bool = False,
+               resize_method: str = "bilinear") -> np.ndarray:
+    """Decode a jpg as (H, W, 3) or a label png as (H, W, 1) float32, with an
+    optional TF-semantics resize (on the CPU) and optional /255."""
+    return prepare_image(decode_image(img_path, is_png), image_size, normalize,
+                         resize_method)
 
 
 def save_img(path: str, x, scale: bool = True, compress_level: int = 6) -> None:

@@ -1,6 +1,8 @@
-"""Prediction panels (port of ``plot_prediction`` from the JAX package's
-``utils/viz.py``; reference utils.py:7-29). numpy, with matplotlib imported
-when a panel is drawn (Agg backend, headless)."""
+"""Visualization helpers (port of the JAX package's ``utils/viz.py``;
+reference utils.py:7-38, 130-148): prediction/overlay panels, image grids,
+histograms, label-count printing. Host only: numpy, with matplotlib
+imported when a figure is drawn (Agg backend, headless); pass save_path to
+write a PNG instead of showing a window."""
 
 from typing import Optional, Sequence
 
@@ -49,3 +51,45 @@ def plot_prediction(display_list: Sequence, only_prediction: bool = True,
     else:
         plt.show()
     return fig
+
+
+def plot_images(image_list: Sequence, rows: int, columns: int,
+                save_path: Optional[str] = None):
+    """The images on a rows x columns grid."""
+    plt = _plt()
+    fig = plt.figure(figsize=(3 * columns, 3 * rows))
+    for i, img in enumerate(image_list):
+        ax = fig.add_subplot(rows, columns, i + 1)
+        ax.imshow(_to_img(img))
+        ax.axis("off")
+    if save_path:
+        fig.savefig(save_path, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+    else:
+        plt.show()
+    return fig
+
+
+def plot_image(image, save_path: Optional[str] = None):
+    return plot_images([image], 1, 1, save_path=save_path)
+
+
+def plot_histogram(image, save_path: Optional[str] = None):
+    """Histogram of the image's values in 255 bins."""
+    plt = _plt()
+    fig = plt.figure(figsize=(8, 6))
+    plt.hist(np.asarray(image).flatten(), bins=255)
+    if save_path:
+        fig.savefig(save_path, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+    else:
+        plt.show()
+    return fig
+
+
+def print_labels(masks: Sequence) -> None:
+    """Standard vs superres label histograms (reference utils.py:144-148)."""
+    titles = ["Standard Labels: ", "Superres Labels: "]
+    for i in range(2):
+        values, counts = np.unique(np.asarray(masks[i]), return_counts=True)
+        print(titles[i] + str(dict(zip(values.tolist(), counts.tolist()))))

@@ -3,9 +3,10 @@ none of the file libraries the card's machine lacks.
 
 The card's machine has no JAX, so a module of the port that imported it (or
 any module of the JAX package, whose ``__init__`` imports jax) would fail
-there. Nor does it have h5py, pandas, tqdm, yaml, PIL or OpenCV, so the
-modules that ``chip_smoke.py`` drives on the card import them only inside
-the CLIs' file-reading functions. One fresh interpreter imports those array
+there. Nor does it have h5py, pandas, tqdm, yaml, PIL, OpenCV or
+matplotlib, so the modules that ``chip_smoke.py`` drives on the card (the
+VOC input's ``data.voc``, ``data.host_augment`` and ``data.dataset`` among
+them) import them only inside the functions that read or draw files. One fresh interpreter imports those array
 cores and lists what was loaded, then the port's entry points and lists it
 again; it also draws an image's augmentation set, which must equal this
 process's draw (hash() is salted per process; the port seeds from CRC-32).
@@ -30,9 +31,11 @@ ARRAY_CORES = [f"{PORT}.{m}" for m in (
     "cli.run_asr", "cli.train", "models.train", "data.synthetic", "pipeline.feature_maps",
     "sr.orchestrate", "cli.generate_augmented_copies", "cli.generate_standard_output",
     "cli.SR_single_class", "cli.threshold_tests", "cli.check_robustness", "ops.warp",
-    "parallel", "parallel.mesh", "parallel.sharded")]
+    "parallel", "parallel.mesh", "parallel.sharded", "data.voc", "data.host_augment",
+    "data.dataset")]
 ENTRY_POINTS = ARRAY_CORES + [f"{PORT}.cli.{m}" for m in (
-    "test_SR", "sweep_script", "sweep_agent", "validate_parity")]
+    "test_SR", "sweep_script", "sweep_agent", "validate_parity", "download_and_prepare_voc",
+    "analyze_results")]
 FILE_LIBRARIES = ("h5py", "pandas", "tqdm", "yaml", "PIL", "cv2", "matplotlib")
 DRAW = dict(seed=1234, image_name="2007_000032", num_aug=4, angle_max=0.3, shift_max=30.0)
 

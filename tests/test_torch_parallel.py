@@ -14,7 +14,8 @@ MobileNetV2: ``make_asr_batch_fn`` on (1, 2) and (2, 1) meshes,
 ``run_asr.main --batch 2`` under torchrun's environment and one sharded
 train step with synchronised BatchNorm, each against the JAX package's
 ``make_asr_batch_fn`` / ``make_sharded_train_step`` on a JAX mesh of the
-same shape. The ranks run while the JAX references compile.
+same shape. The ranks run while the JAX references are traced, one after
+another, and compiled, side by side.
 
 Tolerances, those of the single-card parity tests of the same functions:
 masks agree on >= 99% of pixels and the aug target within 5e-3
@@ -79,7 +80,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     SRConfig, forward_operator, max_mean_superresolution,
     multiclass_max_mean_superresolution, precompute_gram_stencil, solve_with_draws,
     stencil_cache_key)
-from test_torch_shear import jax_init_params, run_fast
+from test_torch_shear import compile_side_by_side, jax_init_params
 from test_torch_train import (TRAIN_LR, _assert_step_close, _batch, _cfgs,
                               _conditioned_start)
 
@@ -257,12 +258,13 @@ def run(tmp_path_factory):
                                str(r), str(port), str(work)], stdout=logs[r],
                               stderr=subprocess.STDOUT) for r in range(2)]
     try:
-        refs = dict(_jax_padded_refs(padded),
-                    **_jax_serve_ref((1, 2), params, jcfg, cfg, class_id, decoded[:1],
-                                     angles, shifts, stencil),
-                    **_jax_serve_ref((2, 1), params, jcfg, cfg, class_id, decoded,
-                                     angles, shifts, stencil),
-                    **_jax_train_ref(start, train_images, train_labels))
+        refs = _run_programs([
+            _jax_padded_refs(padded),
+            _jax_serve_ref((1, 2), params, jcfg, cfg, class_id, decoded[:1], angles, shifts,
+                           stencil),
+            _jax_serve_ref((2, 1), params, jcfg, cfg, class_id, decoded, angles, shifts,
+                           stencil),
+            _jax_train_ref(start, train_images, train_labels)])
         for proc in procs:
             proc.wait(timeout=300)
     finally:
@@ -306,8 +308,20 @@ def _padded_case():
                 x=torch.rand((1, SIZE, SIZE, 1), generator=torch.Generator().manual_seed(3)))
 
 
+def _run_programs(programs):
+    """programs: (jitted, args, finish) each. Each is traced and lowered here,
+    one after another (tracing holds the interpreter lock), compiled with
+    FAST_COMPILE on threads side by side (XLA releases the lock), then run
+    on args; finish turns its outputs into entries of the returned dict."""
+    compiled = compile_side_by_side(*(jitted.lower(*args) for jitted, args, _ in programs))
+    refs = {}
+    for fn, (_, args, finish) in zip(compiled, programs):
+        refs.update(finish(fn(*args)))
+    return refs
+
+
 def _jax_padded_refs(case):
-    """(b)'s JAX references in one jitted program: A^T (w A x) of the padded
+    """(b)'s JAX references in one program: A^T (w A x) of the padded
     set with the padded copy weighted 0, gram and CG on the port's stencil
     (as test_torch_solvers.py hands CG one stencil), direct on minibatches
     of 3 with dropout (key 1, its draws returned), max/mean of one class
@@ -330,12 +344,12 @@ def _jax_padded_refs(case):
                 "classes": j_multiclass_max_mean(m, a, s, jcfg["gram"])}
 
     args = [jnp.asarray(case[k].numpy()) for k in ("masks", "angles", "shifts", "stencil", "x")]
-    return {"padded": jax.tree.map(np.array, run_fast(jax.jit(refs), *args))}
+    return jax.jit(refs), args, lambda out: {"padded": jax.tree.map(np.array, out)}
 
 
 def _jax_serve_ref(shape, params, jcfg, cfg, class_id, images, angles, shifts, stencil):
     """JAX's make_asr_batch_fn on a mesh of this shape over the fake CPU
-    devices, the images one a data index."""
+    devices, the images one a data index (a program for _run_programs)."""
     mesh = j_make_mesh(jax.devices()[:2], shape)
     fn = j_make_asr_batch_fn(mesh, jcfg, _jax_cfg(cfg), class_id, th_factor=0.2,
                              sr_types=SR_TYPES, gram_coeffs=jnp.asarray(stencil.numpy()),
@@ -343,20 +357,24 @@ def _jax_serve_ref(shape, params, jcfg, cfg, class_id, images, angles, shifts, s
     b = len(images)
     args = j_shard_batch(mesh, params, images, np.broadcast_to(angles.numpy(), (b, N_REAL)),
                          np.broadcast_to(shifts.numpy(), (b, N_REAL, 2)))
-    return {f"{shape[0]}x{shape[1]}": jax.tree.map(np.asarray, run_fast(fn, *args))}
+    return fn, args, lambda out: {f"{shape[0]}x{shape[1]}": jax.tree.map(np.asarray, out)}
 
 
 def _jax_train_ref(start, images, labels):
     """JAX's make_sharded_train_step on a (1, 2) mesh from the conditioned
-    start, sgd from a zero trace."""
+    start, sgd from a zero trace (a program for _run_programs)."""
     mesh = j_make_mesh(jax.devices()[:2], (1, 2))
     tcfg, _ = _cfgs()
     step = j_make_sharded_train_step(mesh, tcfg, optax.sgd(TRAIN_LR, momentum=0.9,
                                                            nesterov=True))
     state = (optax.TraceState(trace=jax.tree.map(np.zeros_like, start)), optax.EmptyState())
-    p, o, loss = run_fast(step, start, state, *j_shard_train_batch(mesh, images, labels))
-    return {"train": (jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, o[0].trace),
-                      float(loss))}
+
+    def finish(out):
+        p, o, loss = out
+        return {"train": (jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, o[0].trace),
+                          float(loss))}
+
+    return step, (start, state, *j_shard_train_batch(mesh, images, labels)), finish
 
 
 # ---- (b) the solver with a padded aug axis -----------------------------------

@@ -7,6 +7,7 @@ JAX runs on the CPU: its shear takes the XLA two-level-blend path
 (``_shear_rows``), and the Pallas kernel runs in interpret mode.
 """
 
+import concurrent.futures
 import functools
 
 import numpy as np
@@ -67,6 +68,14 @@ def run_fast(jitted, *args, options=FAST_COMPILE, **static):
     """jitted (a jax.jit function) compiled with options for args and its
     static keyword arguments, then called on args."""
     return jitted.lower(*args, **static).compile(options)(*args)
+
+
+def compile_side_by_side(*lowered, options=FAST_COMPILE):
+    """Lowered programs (jitted.lower(...)) compiled with options on threads
+    side by side: tracing and lowering hold the interpreter lock, XLA's
+    compile releases it."""
+    with concurrent.futures.ThreadPoolExecutor(len(lowered)) as pool:
+        return list(pool.map(lambda lo: lo.compile(options), lowered))
 
 
 def pallas_interpret(images, s, n_cand):

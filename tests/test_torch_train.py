@@ -612,10 +612,12 @@ def test_cli_checkpoint_resume_equals_uninterrupted(tmp_path):
                                    ["--ckpt_format", "orbax"]],
                          ids=["devices", "multihost", "voc", "orbax"])
 def test_cli_rejects_unported_flags(flags, capsys):
-    """--data voc and --ckpt_format orbax exit naming what they wait for.
-    --devices and --multihost are ported (parallel/, run on two ranks in
+    """--ckpt_format orbax exits naming why it is not ported. --devices and
+    --multihost are ported (parallel/, run on two ranks in
     test_torch_parallel.py): they parse, and --devices with a batch that
-    does not split over its ranks exits with the JAX CLI's message."""
+    does not split over its ranks exits with the JAX CLI's message. --data
+    voc is ported (test_torch_voc.py) and exits, as the JAX CLI does,
+    without --pascal_root."""
     if flags[0] in ("--devices", "--multihost"):
         args = cli_train.parse_args(flags)
         assert args.devices == 2 or args.multihost
@@ -626,4 +628,8 @@ def test_cli_rejects_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         cli_train.parse_args(flags)
     err = capsys.readouterr().err
+    if flags[0] == "--data":
+        assert "--data voc requires --pascal_root" in err
+        assert cli_train.parse_args(flags + ["--pascal_root", "voc"]).pascal_root == "voc"
+        return
     assert "not ported" in err and flags[0] in err

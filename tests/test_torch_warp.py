@@ -53,7 +53,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.sr import (
     solve_with_draws,
     stencil_cache_key,
 )
-from test_torch_shear import BF16_ULP_AT_1, run_fast
+from test_torch_shear import BF16_ULP_AT_1, compile_side_by_side, run_fast
 
 torch.set_num_threads(1)
 
@@ -362,7 +362,8 @@ SOLVES = {
 @pytest.fixture(scope="module")
 def solver_refs():
     """JAX's own precompute_gram_stencil (35 aliased probes) on the staged
-    shear and the gather operator, then, in a second jitted program, each of
+    shear and the gather operator, then, in a second jitted program
+    (compiled beside the first), each of
     SOLVES through JAX's augmented_superresolution (classes by vmap; gram
     and CG on those stencils; the minibatch solve with key 1, whose dropout
     weights and copy order it returns too)."""
@@ -383,10 +384,14 @@ def solver_refs():
         return out
 
     a, s = jnp.asarray(angles), jnp.asarray(shifts)
-    stencils = run_fast(jax.jit(lambda a, s: {name: j_precompute_gram_stencil(a, s, cfg)
-                                              for name, cfg in stencil_cfgs.items()}), a, s)
-    ref = run_fast(jax.jit(solves), {k: jnp.asarray(v) for k, v in masks.items()},
-                   stencils, a, s)
+    m = {k: jnp.asarray(v) for k, v in masks.items()}
+    stencil_fn = jax.jit(lambda a, s: {name: j_precompute_gram_stencil(a, s, cfg)
+                                       for name, cfg in stencil_cfgs.items()})
+    solves_fn = jax.jit(solves)
+    stencil_prog, solves_prog = compile_side_by_side(
+        stencil_fn.lower(a, s), solves_fn.lower(m, jax.eval_shape(stencil_fn, a, s), a, s))
+    stencils = stencil_prog(a, s)
+    ref = solves_prog(m, stencils, a, s)
     ref["stencils"] = stencils
     return angles, shifts, masks, jax.tree.map(np.asarray, ref)
 
