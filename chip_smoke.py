@@ -4,6 +4,7 @@ evaluation paths.
     python3 chip_smoke.py [--seed 0] [--images 6] [--stage-trace]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
     python3 chip_smoke.py --sharded-only
+    python3 chip_smoke.py --quality-only
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and the repository checkout. In
 order, each phase raising on failure:
@@ -113,7 +114,17 @@ order, each phase raising on failure:
      forward and adjoint; one train step of MobileNetV2 (alpha 0.35, 32 px,
      f32) and ``warp_augment_batch`` with given draws; the evaluation
      cores (staging in every mode, standard masks, score_image,
-     threshold_ious, robustness_grid) at 64 px.
+     threshold_ious, robustness_grid) at 64 px;
+  9. ``[quality]``, the quality-evidence scripts (``scripts/``) with trained
+     weights: quality_demo's ``run_demo`` trains Xception OS16 bf16 at 512 px
+     with --warp_augment (QUALITY_TRAIN_STEPS steps), then serves 20
+     held-out scenes through the full path (100 copies, each scene its own
+     set, 300 AMSGrad steps, aug / max / mean / standard), its launches
+     asserted per training chunk and per scene, its IoUs printed beside the
+     JAX package's committed ones and the standard arm's held to
+     QUALITY_MIN_STANDARD_IOU; then label_map_eval on those params,
+     ab_stats, per_class_validation (20 classes), ab_cg_vs_adam and
+     ab_serving_vs_strict, each at a smaller depth with its headline.
 
 Before any of it, a line says whether the native decode ring
 (``data/native_loader.py``, host decode) builds on this machine; the script
@@ -2441,6 +2452,237 @@ def phase_sharded(device, images, sr_cfg, class_id, angles, shifts, coeffs, seed
     return paths
 
 
+QUALITY_DIR = "build/chip_smoke_quality"
+# quality_demo's step and scene counts; nothing else differs from the
+# script's defaults but --warp_augment (Xception OS16 bf16, 512 px, 100
+# copies, 300 AMSGrad steps, per-image sets, argmax, th 0.65). 600 steps are
+# the committed JAX results' count (the script's default is 400): at 400 the
+# warp-augmented model is not yet converged (standard IoU 0.7188 on the
+# card, PERF.md §6).
+QUALITY_TRAIN_STEPS = 600
+QUALITY_EVAL_IMAGES = 20
+# Below this the model never left the all-background basin.
+QUALITY_MIN_STANDARD_IOU = 0.5
+# The JAX package's committed results of the same script (600 steps, strict
+# per-image sets, without and with --warp_augment).
+JAX_QUALITY = ("quality_demo_tpu512.json", "quality_demo_tpu512_warpaug.json")
+
+
+class StageLaunches:
+    """A timer for the quality scripts' ``stage(name)`` hook: each stage's
+    host seconds and kernel launches (the counts read before and after).
+    The scripts' stages end with a fetch to the host, so it adds no
+    synchronisation."""
+
+    def __init__(self):
+        self.counters = launch_counters()
+        self.records = []
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        before = {k: c.launches for k, c in self.counters.items()}
+        start = time.perf_counter()
+        yield
+        self.records.append((name, time.perf_counter() - start,
+                             {k: c.launches - before[k] for k, c in self.counters.items()}))
+
+    def of(self, name: str):
+        return [(sec, launches) for n, sec, launches in self.records if n == name]
+
+
+def _jax_quality_lines():
+    """The JAX package's committed quality_demo IoUs (its time figures left
+    out), or a line saying a file is missing."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in JAX_QUALITY:
+        path = os.path.join(root, name)
+        if not os.path.exists(path):
+            yield f"{name}: not in this checkout"
+            continue
+        with open(path) as f:
+            ref = json.load(f)
+        yield (f"{name} (the JAX package's {ref['train_steps']}-step result, "
+               f"warp_augment {ref.get('warp_augment', False)}, {ref['eval_images']} "
+               f"scenes): IoU " + json.dumps({k: round(v, 4) for k, v in ref["iou"].items()})
+               + " with bg " + json.dumps({k: round(v, 4)
+                                           for k, v in ref["iou_with_bg"].items()})
+               + f", aug - standard {ref['aug_minus_standard']:+.4f}, win rate "
+               f"{ref['aug_win_rate_vs_standard']:.2f}")
+
+
+def phase_quality(device):
+    """quality_demo at full width (the script's main path, ``run_demo``):
+    Xception OS16 bf16 trained from init_params(seed 0) on 128 synthetic
+    512-px scenes with --warp_augment (adam 1e-3, batch 8, QUALITY_TRAIN_STEPS
+    steps), then each held-out scene through ``asr_step`` with its own TTA
+    set (its stencil extracted: 35 probes), 100 copies, 300 AMSGrad steps,
+    argmax, th 0.65.
+    Each training chunk's launches (4 + 2 a step) and each image's are
+    asserted; train s/step, eval s/image, peak, the losses (finite), the
+    four arms' IoUs beside the JAX package's committed ones; the standard
+    arm's IoU must reach QUALITY_MIN_STANDARD_IOU. The params are saved for
+    label_map_eval."""
+    import os
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.gram import (
+        RADIUS_X, RADIUS_Y)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.ops.shear_warp import (
+        WARP_LAUNCHES)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.scripts import quality_demo
+    from deeplabv3plus_augmented_superresolution_tpu_torch.scripts.common import (
+        ARMS, TRAIN_CHUNK, sanitize, write_json)
+
+    os.makedirs(QUALITY_DIR, exist_ok=True)
+    npz = os.path.join(QUALITY_DIR, "quality_params.npz")
+    log(f"[quality] train_steps {QUALITY_TRAIN_STEPS} (the script's default 400; the "
+        "committed JAX results' 600)")
+    log(f"[quality] eval_images {QUALITY_EVAL_IMAGES} (the script's default 20)")
+    timer, losses = StageLaunches(), []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with LaunchWindow(device) as window:
+        result = quality_demo.run_demo(
+            train_steps=QUALITY_TRAIN_STEPS, eval_images=QUALITY_EVAL_IMAGES,
+            warp_augment=True, save_params=npz, device=str(device), timer=timer,
+            losses=losses, verbose=False)
+    wall = time.perf_counter() - t0
+    result = sanitize(result)
+    write_json(os.path.join(QUALITY_DIR, "quality_demo.json"), result)
+
+    chunks, images = timer.of("train_chunk"), timer.of("eval_image")
+    steps = [min(TRAIN_CHUNK, QUALITY_TRAIN_STEPS - i) for i in
+             range(0, QUALITY_TRAIN_STEPS, TRAIN_CHUNK)]
+    per_step = {k: 2 * v for k, v in WARP_LAUNCHES.items()}   # images' warp + labels'
+    per_image = expected_launches(SLICE_SR_TYPES,
+                                  probes=(2 * RADIUS_Y + 1) * (RADIUS_X + 1))
+    steady_step = sum(sec for sec, _ in chunks[1:]) / sum(steps[1:])
+    first_step = chunks[0][0] - (steps[0] - 1) * steady_step
+    image_s = [sec for sec, _ in images]
+    log(f"[quality] train: {QUALITY_TRAIN_STEPS} steps in {len(chunks)} chunks, "
+        f"{result['train_s']:.1f}s with the scenes' upload; steady "
+        f"{steady_step:.4f} s/step over chunks 2-{len(chunks)}, first chunk "
+        f"{chunks[0][0]:.2f}s (first step ~{first_step:.2f}s: the chunk less "
+        f"{steps[0] - 1} steady steps); loss first {losses[0]:.4f} last {losses[-1]:.4f}")
+    log(f"[quality] eval: {len(images)} images, steady {_steady(image_s):.3f} s/image "
+        f"(first {image_s[0]:.3f}s), {result['eval_s']:.1f}s in all; the phase "
+        f"{wall:.1f}s; peak memory {window.peak / 2**30:.2f} GiB")
+    log(f"[quality] kernel launches {json.dumps(window.launches)}: per train step "
+        f"{json.dumps(per_step)}, per eval image {json.dumps(per_image)}")
+    for (_, got), n in zip(chunks, steps):
+        if got != {k: n * v for k, v in per_step.items()}:
+            raise AssertionError(f"[quality] a chunk of {n} steps launched {got}")
+    for _, got in images:
+        if got != per_image:
+            raise AssertionError(f"[quality] an eval image launched {got}, expected "
+                                 f"{per_image}")
+    total = {k: QUALITY_TRAIN_STEPS * per_step[k] + QUALITY_EVAL_IMAGES * per_image[k]
+             for k in per_step}
+    if window.launches != total or len(images) != QUALITY_EVAL_IMAGES:
+        raise AssertionError(f"[quality] {window.launches} launches in all, expected {total}")
+    if len(losses) != QUALITY_TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError("[quality] a training loss is not finite")
+    iou = result["iou"]
+    log(f"[quality] port (this run, {QUALITY_TRAIN_STEPS} steps, warp_augment, "
+        f"{QUALITY_EVAL_IMAGES} scenes): IoU "
+        + json.dumps({a: round(iou[a], 4) for a in ARMS}) + " with bg "
+        + json.dumps({a: round(result["iou_with_bg"][a], 4) for a in ARMS})
+        + f", aug - standard {result['aug_minus_standard']:+.4f}, win rate "
+        f"{result['aug_win_rate_vs_standard']:.2f}")
+    for line in _jax_quality_lines():
+        log(f"[quality] {line}")
+    if not (iou["standard"] is not None and iou["standard"] >= QUALITY_MIN_STANDARD_IOU):
+        raise AssertionError(f"[quality] standard IoU {iou['standard']} under "
+                             f"{QUALITY_MIN_STANDARD_IOU}: the model never left the "
+                             "all-background basin")
+    train_launches = {k: QUALITY_TRAIN_STEPS * v for k, v in per_step.items()}
+    record = {"peak_bytes": window.peak, "steady_s_per_step": steady_step,
+              "first_chunk_s": chunks[0][0], "steady_s_per_image": _steady(image_s),
+              "loss_first": losses[0], "loss_last": losses[-1], "iou": iou,
+              "iou_with_bg": result["iou_with_bg"],
+              "aug_minus_standard": result["aug_minus_standard"]}
+    paths = {"quality-train": {"launches": train_launches, **record},
+             "quality-eval": {"launches": {k: window.launches[k] - train_launches[k]
+                                           for k in per_step}}}
+    return paths, npz
+
+
+def phase_quality_scripts(device, npz):
+    """The other quality scripts on the card, each at a smaller depth with
+    its headline, seconds and launches: label_map_eval on quality_demo's
+    params (classes 8 and 12, 3 scenes, 512 px, 100 copies, 300 steps),
+    ab_stats (512 px, milestones 25 and 50, 3 scenes, 1000 resamples),
+    per_class_validation (20 classes, --class_chunk 5, 25 training steps,
+    the pool topped up to every class once), ab_cg_vs_adam (2 images) and
+    ab_serving_vs_strict (2 variants of a synthetic scene holding class 8,
+    handed over decoded, through quality_demo's params: the script's
+    --weights_path)."""
+    import os
+
+    from deeplabv3plus_augmented_superresolution_tpu_torch.cli._common import build_deeplab
+    from deeplabv3plus_augmented_superresolution_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from deeplabv3plus_augmented_superresolution_tpu_torch.scripts import (
+        ab_cg_vs_adam, ab_serving_vs_strict, ab_stats, label_map_eval, per_class_validation)
+
+    out = lambda name: os.path.join(QUALITY_DIR, name)   # noqa: E731
+    dev = ["--device", str(device)]
+    runs = {
+        "quality-label-map": lambda: label_map_eval.main(
+            ["--load_params", npz, "--eval_images", "3", "--out", out("label_map.json")]
+            + dev),
+        "quality-ab-stats": lambda: ab_stats.main(
+            ["--milestones", "25", "50", "--train_set", "16", "--eval_images", "3",
+             "--bootstrap", "1000", "--warp_augment", "--out", out("ab_stats.json")] + dev),
+        "quality-per-class": lambda: per_class_validation.main(
+            ["--num_classes", "20", "--class_chunk", "5", "--train_steps", "25",
+             "--train_set", "16", "--scenes", "4", "--min_class_n", "1",
+             "--out_prefix", out("per_class")] + dev),
+        "quality-cg-vs-adam": lambda: ab_cg_vs_adam.main(["--num_images", "2"] + dev),
+        "quality-serving-vs-strict": lambda: ab_serving_vs_strict.serving_vs_strict(
+            synthetic_batch(np.random.default_rng(0), 1, require_class=8)[0][0],
+            build_deeplab("xception", weights_path=npz, device=device), num_images=2,
+            device=device),
+    }
+    headlines = {
+        "quality-label-map": lambda r: {k: r[k] for k in (
+            "label_map_mean_iou", "label_map_standard_mean_iou",
+            "label_map_minus_standard", "win_rate_vs_standard")},
+        "quality-ab-stats": lambda r: {m: {"iou": c["iou"], "delta": c[
+            "aug_minus_standard"]["mean"], "ci95": c["aug_minus_standard"]["ci95"]}
+            for m, c in r["calibration_curve"].items()},
+        "quality-per-class": lambda r: {"scenes": r["scenes"], **{
+            k: round(v, 4) for k, v in r["modes"]["argmax"]["class_avg"].items()}},
+        "quality-cg-vs-adam": lambda r: r,
+        "quality-serving-vs-strict": lambda r: r,
+    }
+    paths = {}
+    for label, run in runs.items():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with LaunchWindow(device) as window:
+            result = run()
+        seconds = time.perf_counter() - t0
+        log(f"[{label}] {seconds:.1f}s, peak memory {window.peak / 2**30:.2f} GiB, kernel "
+            f"launches {json.dumps(window.launches)}; headline "
+            + json.dumps(headlines[label](result)))
+        if not any(window.launches.values()):
+            raise AssertionError(f"[{label}] launched no kernel")
+        paths[label] = {"launches": window.launches, "seconds": seconds,
+                        "peak_bytes": window.peak}
+    return paths
+
+
+def phase_quality_all(device):
+    """[quality]: quality_demo, then the other scripts on its params."""
+    t0 = time.perf_counter()
+    paths, npz = phase_quality(device)
+    paths.update(phase_quality_scripts(device, npz))
+    log(f"[quality] phase done in {time.perf_counter() - t0:.1f}s")
+    return paths
+
+
 def check_target(model, device, image, class_id, coeffs, sr_cfg, angles, shifts):
     """The continuous SR target of one full-size image is finite, (512, 512, 1)."""
     from deeplabv3plus_augmented_superresolution_tpu_torch.pipeline import asr_step
@@ -2474,6 +2716,9 @@ def main() -> None:
                         default=SHARDED_BETA_RANGE,
                         help="with --sharded-only: the sharded training runs' start "
                              "draws every BN's beta from +-U(LO, HI)")
+    parser.add_argument("--quality-only", action="store_true",
+                        help="run only the [quality] phase (after the build): prints "
+                             "no result line")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel phase (for tuning): prints no "
                              "result line")
@@ -2505,6 +2750,9 @@ def main() -> None:
                                           0.15, 80.0, device=device)
     if args.kernels_only:
         phase_kernel(device, angles, shifts)
+        return
+    if args.quality_only:
+        phase_quality_all(device)
         return
     coeffs = phase_stencil(device, angles, shifts, sr_cfg, "Xception")
     if args.sharded_only:
@@ -2560,6 +2808,7 @@ def main() -> None:
     phase_operator_small(device)
     phase_train_small(device)
     phase_eval_small(device)
+    paths.update(phase_quality_all(device))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     entries = []

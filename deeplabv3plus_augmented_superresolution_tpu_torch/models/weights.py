@@ -26,6 +26,14 @@ WEIGHTS_FILENAMES = {
 }
 
 
+# Upstream release URLs, for provenance / out-of-band download only
+# (reference model.py:9-10): nothing here fetches them.
+WEIGHTS_URLS = {
+    "xception": "https://github.com/bonlime/keras-deeplab-v3-plus/releases/download/1.1/deeplabv3_xception_tf_dim_ordering_tf_kernels.h5",
+    "mobilenet": "https://github.com/bonlime/keras-deeplab-v3-plus/releases/download/1.1/deeplabv3_mobilenetv2_tf_dim_ordering_tf_kernels.h5",
+}
+
+
 def default_weights_path(backbone: str, data_dir: Optional[str] = None) -> str:
     data_dir = data_dir or os.path.join(os.getcwd(), "data")
     return os.path.join(data_dir, "model_weights", WEIGHTS_FILENAMES[backbone])
@@ -184,3 +192,14 @@ def build_model(cfg: DeepLabConfig, seed: int = 0,
     params = resolve_params(cfg, seed, params, weights_path)
     model = DeepLab(cfg, device=device).load_params(params_from_jax(params))
     return model.eval().to(memory_format=torch.channels_last)
+
+
+@torch.no_grad()
+def forward(params: NumpyParams, image: torch.Tensor, cfg: DeepLabConfig) -> torch.Tensor:
+    """The reference's functional forward: a batch (B, H, W, 3) on any device
+    -> (B, h, w, classes) logits of the model of cfg with the Keras-named
+    params (reference layout), in inference mode. Builds the module on the
+    image's device each call; a caller that serves many batches keeps the
+    module of ``build_model``."""
+    model = DeepLab(cfg, device=image.device).load_params(params_from_jax(params))
+    return model.eval()(image)

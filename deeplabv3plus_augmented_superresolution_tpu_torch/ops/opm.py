@@ -113,3 +113,18 @@ def prepare_sr_inputs(class_masks: torch.Tensor,
     if mode == "slice_max" and max_masks is not None:
         max_masks = normalize_stack(max_masks, global_normalize)
     return class_masks, max_masks
+
+
+def create_mask(prediction: torch.Tensor) -> torch.Tensor:
+    """Argmax label image with a trailing channel axis (reference utils.py:115-119)."""
+    return torch.argmax(prediction, dim=-1, keepdim=True)
+
+
+def get_prediction(apply_fn, params, image: torch.Tensor) -> torch.Tensor:
+    """Single-image forward -> argmax mask (reference utils.py:122-127:
+    model.predict on a batch of one, then create_mask of the first output).
+
+    apply_fn: a (params, batch) forward, e.g. ``models.forward`` with its
+    config bound."""
+    prediction = apply_fn(params, image[None])
+    return create_mask(prediction[0])

@@ -70,6 +70,20 @@ def make_augmented_copies(image: torch.Tensor, angles: torch.Tensor,
     return out.view(num_aug, b, c, h, w).permute(0, 1, 3, 4, 2)
 
 
+def create_augmented_copies(image: torch.Tensor, num_aug: int, angle_max: float,
+                            shift_max: float, generator: torch.Generator,
+                            warp_impl: str = "shear"
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's create_augmented_copies signature, with a
+    torch.Generator in place of the key: (copies, angles, shifts), the set
+    drawn on the generator's device and used on the image's."""
+    angles, shifts = sample_augmentations(generator, num_aug, angle_max, shift_max,
+                                          device=image.device)
+    copies = make_augmented_copies(image, angles, shifts, num_aug, warp_impl=warp_impl,
+                                   angle_max=max(angle_max, 1e-3))
+    return copies, angles, shifts
+
+
 def sample_warp_draws(generator: torch.Generator, shape, angle_max: float,
                       shift_max: float, prob: float = 0.5, *, device
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

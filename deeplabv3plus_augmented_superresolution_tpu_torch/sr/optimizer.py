@@ -57,6 +57,15 @@ def learning_rate(cfg: OptimizerConfig, count: int) -> np.float32:
     return lr0 * np.power(np.float32(cfg.decay_rate), p)
 
 
+def make_schedule(cfg: OptimizerConfig):
+    """The reference's learning rate: the constant cfg.learning_rate, or with
+    cfg.lr_scheduler the schedule count -> ``learning_rate(cfg, count)``
+    (optax's non-staircase exponential_decay)."""
+    if not cfg.lr_scheduler:
+        return cfg.learning_rate
+    return lambda count: learning_rate(cfg, int(count))
+
+
 def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.power(np.float32(decay), np.float32(count)))
 

@@ -7,7 +7,10 @@ keyed by sha256 over the exact angle/shift values, those fields and the tag
 operators agree only to float tolerance). The fields include the count of
 real copies (``n_valid``), which the JAX key lacks: a set padded with
 identity copies (weighted 0) and a set whose last copies are real identity
-transforms have the same values and different stencils.
+transforms have the same values and different stencils. They also include
+``solve_dtype``, which the JAX key lacks too: the staged operator warps in
+bfloat16 when it is "bfloat16", so that stencil differs from the float32
+one.
 """
 
 import hashlib
@@ -28,7 +31,8 @@ def stencil_cache_key(angles, shifts, cfg) -> str:
     h.update(np.asarray(shifts, np.float64).tobytes())
     h.update(repr((tuple(cfg.feature_size), tuple(cfg.output_size),
                    cfg.angle_max, cfg.num_aug, cfg.n_valid, cfg.operator_impl,
-                   cfg.warp_impl, cfg.gram_probing, BACKEND_TAG)).encode())
+                   cfg.warp_impl, cfg.gram_probing, cfg.solve_dtype,
+                   BACKEND_TAG)).encode())
     return h.hexdigest()[:24]
 
 

@@ -1,5 +1,6 @@
-"""Per-stage wall times and profiler traces (port of the JAX package's
-``utils/profiling.StageTimer`` and ``trace_to``).
+"""Per-stage wall times, profiler traces and the device summary (port of the
+JAX package's ``utils/profiling.StageTimer``, ``trace_to`` and
+``device_summary``).
 
 With ``sync_device`` set, each stage is bracketed by
 ``torch.cuda.synchronize(device)``, so its wall time covers the device work
@@ -77,3 +78,18 @@ def trace_to(log_dir: str):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
+
+
+def device_summary() -> str:
+    """The visible CUDA cards with the memory in use on each (torch's
+    allocator) over its total, or the CPU when there is none."""
+    if not torch.cuda.is_available():
+        return "1 device(s), platform=cpu"
+    count = torch.cuda.device_count()
+    lines = [f"{count} device(s), platform=cuda"]
+    for i in range(count):
+        used = torch.cuda.memory_allocated(i) / 2**30
+        total = torch.cuda.get_device_properties(i).total_memory / 2**30
+        lines.append(f"  cuda:{i} {torch.cuda.get_device_name(i)}: "
+                     f"{used:.2f}/{total:.2f} GiB in use")
+    return "\n".join(lines)

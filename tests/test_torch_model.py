@@ -22,6 +22,7 @@ from deeplabv3plus_augmented_superresolution_tpu_torch.models import (
     DeepLab,
     DeepLabConfig,
     build_model,
+    forward,
     init_params,
     load_keras_h5_weights,
     params_from_jax,
@@ -113,6 +114,16 @@ def test_xception_f32_logits_match_jax(jax_params, image, forward_refs, os_):
     with torch.no_grad():
         ours = model(torch.from_numpy(image)).numpy()
     assert ours.shape == ref.shape == (2, 16, 16, 21)
+    np.testing.assert_allclose(ours, ref, atol=1e-4 * np.abs(ref).max())
+
+
+def test_functional_forward_matches_jax(jax_params, image, forward_refs):
+    """models.forward(params, image, cfg), the reference's functional form,
+    on the reference's param dict: the f32 logits as the module's, 1e-4 of
+    the logit scale."""
+    ref = forward_refs[0]["full"]
+    ours = forward(jax_params, torch.from_numpy(image), DeepLabConfig(**SMALL)).numpy()
+    assert ours.shape == ref.shape
     np.testing.assert_allclose(ours, ref, atol=1e-4 * np.abs(ref).max())
 
 

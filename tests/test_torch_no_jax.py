@@ -5,8 +5,8 @@ The card's machine has no JAX, so a module of the port that imported it (or
 any module of the JAX package, whose ``__init__`` imports jax) would fail
 there. Nor does it have h5py, pandas, tqdm, yaml, PIL, OpenCV or
 matplotlib, so the modules that ``chip_smoke.py`` drives on the card (the
-VOC input's ``data.voc``, ``data.host_augment`` and ``data.dataset`` among
-them) import them only inside the functions that read or draw files. One fresh interpreter imports those array
+VOC input's ``data.voc``, ``data.host_augment`` and ``data.dataset`` and
+the quality-evidence scripts among them) import them only inside the functions that read or draw files. One fresh interpreter imports those array
 cores and lists what was loaded, then the port's entry points and lists it
 again; it also draws an image's augmentation set, which must equal this
 process's draw (hash() is salted per process; the port seeds from CRC-32).
@@ -32,10 +32,12 @@ ARRAY_CORES = [f"{PORT}.{m}" for m in (
     "sr.orchestrate", "cli.generate_augmented_copies", "cli.generate_standard_output",
     "cli.SR_single_class", "cli.threshold_tests", "cli.check_robustness", "ops.warp",
     "parallel", "parallel.mesh", "parallel.sharded", "data.voc", "data.host_augment",
-    "data.dataset")]
+    "data.dataset", "scripts.common", "scripts.quality_demo", "scripts.ab_stats",
+    "scripts.label_map_eval", "scripts.per_class_validation", "scripts.ab_cg_vs_adam",
+    "scripts.ab_serving_vs_strict")]
 ENTRY_POINTS = ARRAY_CORES + [f"{PORT}.cli.{m}" for m in (
     "test_SR", "sweep_script", "sweep_agent", "validate_parity", "download_and_prepare_voc",
-    "analyze_results")]
+    "analyze_results")] + [f"{PORT}.scripts.make_synthetic_voc"]
 FILE_LIBRARIES = ("h5py", "pandas", "tqdm", "yaml", "PIL", "cv2", "matplotlib")
 DRAW = dict(seed=1234, image_name="2007_000032", num_aug=4, angle_max=0.3, shift_max=30.0)
 
