@@ -1,0 +1,2 @@
+"""One reader per metric, found by the metric's name: ``read(run)`` returns
+the value, or None where the run holds nothing to read."""
